@@ -1,0 +1,77 @@
+"""The port stands alone: ``repro_torch`` imports neither JAX nor the JAX
+package, and needs a GPU unless the caller asks for the CPU."""
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_torch)"
+    r"|from\s+repro(\.|\s+import\b))",
+    re.MULTILINE,
+)
+
+
+def test_import_loads_no_jax_and_no_repro():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.apps\n"
+        "import repro_torch.exec, repro_torch.core.plan_cache\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax')"
+        " or m == 'repro' or m.startswith('repro.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code],
+        capture_output=True,
+        text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_no_source_imports_jax_or_repro():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    offenders = [
+        f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+        for f in files
+        for m in _FORBIDDEN.finditer(f.read_text())
+    ]
+    assert not offenders, offenders
+
+
+def test_forbidden_pattern_catches_what_it_should():
+    for line in ("import jax", "from jax import numpy", "import repro",
+                 "from repro.core import engine", "from repro import api"):
+        assert _FORBIDDEN.search(line), line
+    for line in ("import repro_torch", "from repro_torch.core import engine",
+                 "import jaxlib", "x = 1  # import jax later"):
+        assert not _FORBIDDEN.search(line), line
+
+
+def test_runtime_without_device_needs_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default device is valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.runtime()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.Runtime(nprocs=2)
+
+
+def test_unported_features_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        repro_torch.runtime(device="cpu", verify="plan")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        repro_torch.runtime(device="cpu", trace="out.json")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        repro_torch.trace("out.json")

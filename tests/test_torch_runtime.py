@@ -1,0 +1,179 @@
+"""The port's runtime (repro_torch) against the JAX package's runtime
+(repro) on the paper's eight applications, on the CPU.
+
+Both packages run the same programs (``repro_torch.apps`` and
+``benchmarks.paper_apps``) at the sizes and blocks of
+tests/test_exec.py, 4 processes.  The port runs its torch backend with
+blocks on ``device="cpu"``, so fused stencil payloads take the plain
+version of the ``stencil5_block`` kernel; the reference is the NumPy
+interpreter.
+
+Tolerances: programs of elementwise + - * / and comparisons only are
+bit-identical (IEEE-exact operations in the same order and dtype).
+Reductions, transcendentals and matmul agree at rtol 1e-12, because
+torch sums and evaluates exp/log/pow in another order or with another
+libm than NumPy.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import apps
+from repro_torch.api import ExecutionPolicy, RuntimeConfig
+from repro_torch.core.engine import export_storage, import_storage
+
+pytest.importorskip("jax")
+
+import repro  # noqa: E402
+from benchmarks.paper_apps import run_app as run_ref  # noqa: E402
+
+SMALL = dict(
+    fractal=dict(n=128, iters=4),
+    black_scholes=dict(n=50_000, iters=3),
+    nbody=dict(n=192, steps=2),
+    knn=dict(n=512, d=16),
+    lbm2d=dict(h=128, w=128, steps=2),
+    lbm3d=dict(d=16, h=16, w=16, steps=2),
+    jacobi=dict(n=256, nrhs=256, iters=3),
+    jacobi_stencil=dict(n=256, iters=3),
+)
+SMALL_BLOCKS = dict(
+    fractal=32, black_scholes=8192, nbody=64, knn=128,
+    lbm2d=32, lbm3d=8, jacobi=64, jacobi_stencil=64,
+)
+# only IEEE-exact elementwise ops: must be bit-identical
+EXACT = {"fractal", "lbm2d", "lbm3d", "jacobi_stencil"}
+
+ASYNC = ExecutionPolicy(flush="async", backend="torch")
+
+
+def _port(app, policy=ASYNC, fusion=False):
+    cfg = RuntimeConfig(nprocs=4, block_size=SMALL_BLOCKS[app], fusion=fusion,
+                        device="cpu")
+    return apps.run_app(app, cfg, policy, **SMALL[app])
+
+
+def _ref(app, **kw):
+    return run_ref(app, nprocs=4, block_size=SMALL_BLOCKS[app], **kw,
+                   **SMALL[app])
+
+
+def _assert_matches(app, got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if app in EXACT:
+        assert np.array_equal(got, want, equal_nan=True)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("app", list(SMALL))
+def test_port_matches_numpy_backend(app):
+    st, got = _port(app)
+    _, want = _ref(app, flush_backend="async", exec_backend="numpy")
+    _assert_matches(app, got, want)
+    assert st.n_compute_ops > 0 and 0.0 <= st.wait_fraction <= 1.0
+
+
+def test_fused_stencil_bit_identical_through_stencil5(monkeypatch):
+    """Fused sweeps route through the stencil5_block wrapper (its plain
+    version on the CPU) and stay bit-identical to the interpreter."""
+    import repro_torch.exec.backend as backend
+
+    calls = []
+
+    def spy(*xs, weight):
+        calls.append((xs[0].shape, weight))
+        return apps_stencil5(*xs, weight=weight)
+
+    apps_stencil5 = backend.stencil5_block
+    monkeypatch.setattr(backend, "stencil5_block", spy)
+    _, got = _port("jacobi_stencil", fusion=True)
+    _, want = _ref("jacobi_stencil", flush_backend="async",
+                   exec_backend="numpy", fusion=True)
+    assert np.array_equal(got, want)
+    assert calls and all(w == 0.2 for _, w in calls)
+
+
+@pytest.mark.parametrize("app", ["jacobi_stencil", "black_scholes", "lbm3d"])
+def test_simulated_flush_matches_reference_simulator(app):
+    st, got = _port(app, ExecutionPolicy(flush="sim"))
+    _, want = _ref(app)
+    _assert_matches(app, got, want)
+    assert st.makespan > 0
+
+
+@pytest.mark.parametrize("sync", ["demand", "barrier"])
+@pytest.mark.parametrize("app", ["jacobi_stencil", "knn"])
+def test_sync_modes(app, sync):
+    _, got = _port(app, ASYNC.replace(sync=sync))
+    _, want = _ref(app, flush_backend="async", exec_backend="numpy")
+    _assert_matches(app, got, want)
+
+
+def test_blocking_channel_matches():
+    st, got = _port("jacobi_stencil", ASYNC.replace(channel="blocking"))
+    _, want = _ref("jacobi_stencil")
+    assert st.mode == "blocking-channel"
+    assert np.array_equal(got, want)
+
+
+def test_jacobi_sweeps_equals_runtime_stencil():
+    """The compiled-sweep form (whole-grid jacobi_sweep) equals the
+    runtime's fused stencil bit for bit in float64."""
+    _, got = _port("jacobi_stencil", fusion=True)
+    swept = apps.jacobi_sweeps(256, 3, device="cpu")
+    assert np.array_equal(swept.numpy(), got)
+
+
+def test_storage_parity_and_round_trip():
+    """The same seeded array scattered by both packages gives the same
+    layout and, exported, the same blocks."""
+    x = np.random.default_rng(7).standard_normal((37, 50))
+    with repro.runtime(nprocs=4, block_size=16) as rt_ref:
+        a = repro.array(x)
+        want = {k[1]: v for k, v in rt_ref.storage.items() if k[0] == a._base.id}
+        want_layout = dataclasses.astuple(a._base.layout)
+        round_trip = export_storage(import_storage(rt_ref.storage, "cpu"))
+        assert round_trip.keys() == rt_ref.storage.keys()
+        for k, v in rt_ref.storage.items():
+            assert round_trip[k].dtype == v.dtype
+            assert np.array_equal(round_trip[k], v)
+    with repro_torch.runtime(nprocs=4, block_size=16, device="cpu") as rt:
+        b = repro_torch.array(x)
+        assert all(isinstance(t, torch.Tensor) and t.device == rt.device
+                   for t in rt.storage.values())
+        got = {k[1]: v for k, v in export_storage(rt.storage).items()
+               if k[0] == b._base.id}
+        assert dataclasses.astuple(b._base.layout) == want_layout
+    assert got.keys() == want.keys()
+    for coord in want:
+        assert got[coord].dtype == want[coord].dtype
+        assert np.array_equal(got[coord], want[coord])
+
+
+def test_float32_program_follows_numpy_promotion():
+    """A float32 block times a constant that the fuse pass folded in as
+    an np.float64 scalar computes the way NumPy does — in float64,
+    stored back into float32 — not in float32 as torch would."""
+    x = np.random.default_rng(8).random((40, 40)).astype(np.float32)
+
+    def program(mod):
+        a = mod.array(x)
+        d = mod.zeros((40, 40))
+        d[...] = 0.1  # a fill the fuse pass folds into the map below
+        c = mod.zeros((40, 40), dtype=np.float32)
+        c[...] = a * d
+        return np.asarray(c)
+
+    kw = dict(nprocs=4, block_size=16, flush="async", fusion=True)
+    with repro.runtime(**kw):
+        want = program(repro)
+    with repro_torch.runtime(**kw, device="cpu") as rt:
+        got = program(repro_torch)
+        assert rt.plan_stats.n_const_folded > 0
+    assert got.dtype == want.dtype == np.float32
+    assert np.array_equal(got, want)
+    assert not np.array_equal(got, x * np.float32(0.1))
