@@ -1,0 +1,21 @@
+"""Granite-3.0-8B — dense GQA [hf:ibm-granite/granite-3.0-2b-base family; hf].
+
+40L, d_model=4096, 32 heads / 8 KV heads (head_dim 128), d_ff=12800,
+vocab=49155.
+"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    arch_id="granite-3-8b",
+    family="dense",
+    n_layers=40,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=12800,
+    vocab_size=49155,
+    layer_pattern="A",
+    rope_theta=1e4,
+    tie_embeddings=True,
+)

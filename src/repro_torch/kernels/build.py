@@ -7,6 +7,9 @@ runs at first use, from the sources in this package only, into
 ``repro_torch/kernels/_build/``; the object's name carries a hash of the
 source and the flags, so an edited source is rebuilt and an unchanged
 one is reused.  A failed build raises with the compiler's output.
+
+Every library gets ``NVCC_FLAGS``; a library adds its own ``flags``
+(the stencil, which must round as NumPy does, adds ``--fmad=false``).
 """
 from __future__ import annotations
 
@@ -28,13 +31,12 @@ NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "--fmad=false",
     "-Xptxas=-v",
     "-shared",
     "-Xcompiler=-fPIC",
 )
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _built; nvcc runs outside it
 _built: dict[str, "BuiltLibrary"] = {}
 
 
@@ -59,30 +61,32 @@ def _nvcc() -> str:
     )
 
 
-def build_library(name: str, source: Path) -> BuiltLibrary:
-    """Compile ``source`` (once per process, and once per source hash on
-    disk) and return the loaded library."""
+def build_library(name: str, source: Path, flags: tuple = ()) -> BuiltLibrary:
+    """Compile ``source`` with ``NVCC_FLAGS`` plus ``flags`` (once per
+    process, and once per hash of source and flags on disk) and return the
+    loaded library.  Different libraries may be built from several threads
+    at once."""
     with _lock:
         if name in _built:
             return _built[name]
-        text = source.read_bytes()
-        digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        out = BUILD_DIR / f"lib{name}-{digest[:16]}.so"
-        seconds, log = 0.0, ""
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed building {source.name} "
-                    f"(exit {proc.returncode}):\n{' '.join(cmd)}\n{log}"
-                )
-            os.replace(tmp, out)  # atomic: concurrent builders never see half a file
-        built = BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, log)
-        _built[name] = built
-        return built
+    text = source.read_bytes()
+    all_flags = (*NVCC_FLAGS, *flags)
+    digest = hashlib.sha256(text + " ".join(all_flags).encode()).hexdigest()
+    out = BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    seconds, log = 0.0, ""
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [_nvcc(), *all_flags, "-o", str(tmp), str(source)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed building {source.name} "
+                f"(exit {proc.returncode}):\n{' '.join(cmd)}\n{log}"
+            )
+        os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+    with _lock:
+        return _built.setdefault(name, BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, log))

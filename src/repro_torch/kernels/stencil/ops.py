@@ -34,6 +34,8 @@ __all__ = [
 ]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "stencil.cu"
+# both kernels must round as the NumPy interpreter does: no a*b+c contracts
+NVCC_FLAGS = ("--fmad=false",)
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -59,7 +61,7 @@ def _count(name: str, shape) -> None:
 
 def load() -> BuiltLibrary:
     """Build (at first use) and load the stencil kernel library."""
-    built = build_library("stencil", SOURCE)
+    built = build_library("stencil", SOURCE, flags=NVCC_FLAGS)
     with _bind_lock:
         if built.path not in _bound:
             p, i64 = ctypes.c_void_p, ctypes.c_int64

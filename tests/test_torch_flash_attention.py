@@ -1,0 +1,188 @@
+"""The port's attention against the JAX package's, on the CPU.
+
+``flash_attention_plain`` (what the flash wrapper runs for CPU tensors,
+and what the CUDA kernel is held to on the card) against the Pallas
+kernel in interpret mode and the dense ``flash_attention_ref`` oracle;
+the torch ``chunked_attention`` and ``attention`` against their JAX
+originals.  Inputs come from seeded numpy and cross as numpy arrays;
+bf16 inputs are rounded from the same f32 values on both sides.
+Tolerances are those of tests/test_kernels.py: f32 5e-4, bf16 5e-2.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_reduced as jax_reduced
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.kernels.flash_attention import flash_attention_ref
+from repro.models import attention as jax_attention
+from repro_torch.configs import get_reduced
+from repro_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_plain,
+    launches,
+)
+from repro_torch.models import attention as port_attention
+from repro_torch.models.convert import tensor_from_numpy
+
+TOL = {"float32": 5e-4, "bfloat16": 5e-2}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs in several worker processes on a few cores; torch's
+    default of one thread per core in each would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def _inputs(seed, shapes, dtype="float32"):
+    rng = np.random.default_rng(seed)
+    xs = [rng.standard_normal(s, dtype=np.float32) for s in shapes]
+    jx = [jnp.asarray(x).astype(dtype) for x in xs]
+    tx = [torch.from_numpy(x).to(getattr(torch, dtype)) for x in xs]
+    return jx, tx
+
+
+def _err(got: torch.Tensor, want) -> float:
+    return float(np.abs(got.float().numpy() - np.asarray(want, np.float32)).max())
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,d", [
+    (1, 128, 128, 2, 2, 64),
+    (2, 130, 130, 4, 2, 64),     # ragged: the Pallas wrapper pads, the port does not
+    (1, 64, 192, 2, 1, 80),      # cross-length (queries from position 0), d = 80
+    (1, 96, 96, 4, 4, 128),
+    (2, 70, 70, 8, 2, 120),      # the h2o-danube head dim, GQA 4:1
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_pallas_kernel_and_ref(B, Sq, Sk, H, KV, d, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        0, [(B, Sq, H, d), (B, Sk, KV, d), (B, Sk, KV, d)], dtype)
+    before = launches["flash_attention"]
+    got = flash_attention(tq, tk, tv, causal=True)
+    assert launches["flash_attention"] == before  # CPU tensors: the plain version
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    pallas = jax_flash(jq, jk, jv, causal=True, block_q=64, block_k=64)
+    ref = flash_attention_ref(jq, jk, jv, causal=True)
+    assert _err(got, pallas) < TOL[dtype]
+    assert _err(got, ref) < TOL[dtype]
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 37),
+                                           (False, 50)])
+def test_plain_masks_match_pallas_kernel_and_ref(causal, window):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(1, [(1, 256, 2, 64)] * 3)
+    got = flash_attention_plain(tq, tk, tv, causal=causal, window=window)
+    pallas = jax_flash(jq, jk, jv, causal=causal, window=window, block_q=64, block_k=64)
+    ref = flash_attention_ref(jq, jk, jv, causal=causal, window=window)
+    assert _err(got, pallas) < 5e-4
+    assert _err(got, ref) < 5e-4
+
+
+# every query row keeps a valid key (a row with none is left undefined)
+@pytest.mark.parametrize("sk_valid,window", [(1, None), (50, 30), (77, 30)])
+def test_plain_sk_valid_masks_the_key_tail(sk_valid, window):
+    """Keys at or past ``sk_valid`` never count: the same as attending the
+    first ``sk_valid`` keys only (the Pallas kernel's padded-key mask)."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(2, [(2, 77, 4, 32), (2, 100, 2, 32),
+                                             (2, 100, 2, 32)])
+    got = flash_attention_plain(tq, tk, tv, causal=True, window=window,
+                                sk_valid=sk_valid)
+    ref = flash_attention_ref(jq, jk[:, :sk_valid], jv[:, :sk_valid], causal=True,
+                              window=window)
+    assert _err(got, ref) < 5e-4
+
+
+def test_plain_block_sizes_do_not_change_the_result():
+    _, (tq, tk, tv) = _inputs(3, [(1, 200, 4, 48), (1, 200, 2, 48), (1, 200, 2, 48)])
+    a = flash_attention_plain(tq, tk, tv, window=45)
+    b = flash_attention_plain(tq, tk, tv, window=45, block_q=32, block_k=128)
+    assert (a - b).abs().max().item() < 1e-5
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    x = torch.zeros(1, 8, 4, 16)
+    with pytest.raises(TypeError):
+        flash_attention(x, x.bfloat16(), x)
+    with pytest.raises(ValueError):
+        flash_attention(x, torch.zeros(1, 8, 3, 16), torch.zeros(1, 8, 3, 16))
+    with pytest.raises(ValueError):
+        flash_attention(x, x, x, sk_valid=9)
+    with pytest.raises(ValueError):
+        flash_attention(x[0], x, x)
+
+
+# (q shape, kv shape, v head dim, kwargs): every argument of chunked_attention
+CHUNKED_CASES = {
+    "causal": ((2, 96, 4, 32), (2, 96, 2, 32), 32, dict(causal=True, chunk=32)),
+    "kv_len": ((2, 1, 2, 16), (2, 64, 2, 16), 16,
+               dict(causal=False, kv_len=np.array([10, 30]), chunk=16)),
+    "q_offset_window": ((2, 5, 4, 16), (2, 40, 2, 16), 16,
+                        dict(causal=True, window=7, q_offset=np.array([5, 9]),
+                             kv_len=np.array([10, 14]), chunk=16)),
+    "ring": ((2, 1, 4, 16), (2, 16, 2, 16), 16, dict(causal=True, window=16, chunk=8)),
+    "scale_hdv": ((1, 33, 2, 32), (1, 33, 2, 32), 24,
+                  dict(causal=True, scale=0.3, chunk=16)),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(CHUNKED_CASES))
+def test_chunked_attention_matches_repro(case, dtype):
+    qs, ks, dv, kw = CHUNKED_CASES[case]
+    (jq, jk, jv), (tq, tk, tv) = _inputs(4, [qs, ks, ks[:3] + (dv,)], dtype)
+    jkw, tkw = dict(kw), dict(kw)
+    if case == "ring":  # slots of a ring cache at positions 20 and 37
+        L = ks[1]
+        pos = np.array([20, 37])
+        k_pos = pos[:, None] - (pos[:, None] - np.arange(L)[None, :]) % L
+        jkw.update(q_offset=jnp.asarray(pos), k_positions=jnp.asarray(k_pos))
+        tkw.update(q_offset=torch.from_numpy(pos), k_positions=torch.from_numpy(k_pos))
+    for key in ("kv_len", "q_offset"):
+        if key in kw:
+            jkw[key], tkw[key] = jnp.asarray(kw[key]), torch.from_numpy(kw[key])
+    want = jax_attention.chunked_attention(jq, jk, jv, **jkw)
+    got = port_attention.chunked_attention(tq, tk, tv, **tkw)
+    assert got.dtype == tq.dtype and tuple(got.shape) == want.shape
+    assert _err(got, want) < TOL[dtype]
+
+
+@pytest.mark.parametrize("mode", ["self", "cache", "cross"])
+def test_attention_matches_repro(mode):
+    cfg_j = jax_reduced("h2o-danube-3-4b", n_kv_heads=2)
+    cfg_t = get_reduced("h2o-danube-3-4b", n_kv_heads=2)
+    pj = jax_attention.attn_init(jax.random.PRNGKey(0), cfg_j, cross=mode == "cross")
+    pt = port_attention.Attention(cfg_t, device="cpu")
+    for name in ("wq", "wk", "wv", "wo"):
+        getattr(pt, name).copy_(tensor_from_numpy(pj[name]))
+    B, S, D = 2, 12, cfg_j.d_model
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((B, S, D), dtype=np.float32)
+    jkw, tkw = dict(window=cfg_j.swa_window), dict(window=cfg_t.swa_window)
+    if mode == "cache":
+        pos = np.array([3, 7], np.int32)
+        cache = rng.standard_normal((2, B, 24, cfg_j.n_kv_heads, cfg_j.hd),
+                                    dtype=np.float32)
+        jkw.update(cache={"k": jnp.asarray(cache[0]), "v": jnp.asarray(cache[1])},
+                   cache_pos=jnp.asarray(pos),
+                   positions=jnp.asarray(pos[:, None] + np.arange(S)))
+        tkw.update(cache={"k": torch.from_numpy(cache[0].copy()),
+                          "v": torch.from_numpy(cache[1].copy())},
+                   cache_pos=torch.from_numpy(pos),
+                   positions=torch.from_numpy(pos[:, None] + np.arange(S)))
+    if mode == "cross":
+        src = rng.standard_normal((B, 20, D), dtype=np.float32)
+        jkw.update(causal=False, rope=False, kv_from=jnp.asarray(src))
+        tkw.update(causal=False, rope=False, kv_from=torch.from_numpy(src))
+    want, want_cache = jax_attention.attention(cfg_j, pj, jnp.asarray(x), **jkw)
+    got, got_cache = port_attention.attention(cfg_t, pt, torch.from_numpy(x), **tkw)
+    assert _err(got, want) < 5e-4
+    assert (got_cache is None) == (want_cache is None)
+    if got_cache is not None:
+        for key in ("k", "v"):
+            assert _err(got_cache[key], want_cache[key]) < 5e-4

@@ -24,6 +24,8 @@ def test_import_loads_no_jax_and_no_repro():
         "import sys\n"
         "import repro_torch, repro_torch.apps\n"
         "import repro_torch.exec, repro_torch.core.plan_cache\n"
+        "import repro_torch.configs, repro_torch.models, repro_torch.launch.steps\n"
+        "import repro_torch.models.convert, repro_torch.kernels.flash_attention\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"
@@ -66,6 +68,25 @@ def test_runtime_without_device_needs_a_gpu():
         repro_torch.runtime()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         repro_torch.Runtime(nprocs=2)
+
+
+def test_lm_entry_points_without_device_need_a_gpu():
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import init_params, make_decode_state
+    from repro_torch.models.attention import init_kv_cache
+    from repro_torch.models.convert import params_from_jax
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default device is valid")
+    cfg = get_reduced("h2o-danube-3-4b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_decode_state(cfg, 2, 32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax(cfg, {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_kv_cache(cfg, 2, 32, cfg.n_layers)
 
 
 def test_unported_features_raise():
