@@ -29,12 +29,28 @@ Phases, each asserted (any failure exits non-zero):
    from seed 0) serving two prompts of 8192 seeded tokens —
    ``make_prefill_step`` then 16 greedy ``make_serve_step`` steps — with
    exactly one flash launch per layer in prefill and none in decode;
-8. the same prompts through the torch ``chunked_attention``
+8. the same prompts through the torch twins of the kernels
    (``use_flash=False``), teacher-forced on the tokens of phase 7, in
    bf16 at full depth and in f32 at full width with 2 layers;
-9. the flash kernel's time at the LM path's shape beside its bound, its
-   plain version's time and ``F.scaled_dot_product_attention`` with a
-   band mask as a yardstick (which the port never calls).
+9. zamba2-2.7b served the same way (54 layers ``MMMMMH`` x 9, d_model
+   2560, 80 SSM heads of 64, state 64, the shared MHA block 32 x 80,
+   d_ff 10240, vocab 32000, tied embeddings): exactly 54 SSD scan and 9
+   flash launches in prefill, none in decode;
+10. zamba2's kernels against its torch twins, as phase 8 (f32: the 6
+    layers ``MMMMMH``);
+11. rwkv6-3b served the same way (32 layers, d_model 2560, 40 heads of
+    64, d_ff 8960, vocab 65536, untied): exactly 32 wkv launches in
+    prefill, none in decode;
+12. rwkv6's kernel against its torch twin, as phase 8 (f32: 2 layers);
+13. the flash kernel's time at the h2o-danube path's shape beside its
+    bound, its plain version's time and ``F.scaled_dot_product_attention``
+    with a band mask as a yardstick (which the port never calls);
+14. the SSD scan and wkv kernels' times at their paths' shapes beside
+    their bounds and their plain versions' times.
+
+Phase 2 also holds the SSD scan and wkv kernels to their plain versions
+(f32 and the paths' bf16/f32 mix; ragged lengths, initial states,
+several heads, and each path's own shape).
 
 The second-to-last line of output is the JSON ``kernels`` record, the
 line before it the card's name and power limit, and the last line
@@ -61,15 +77,54 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor cores, NVIDIA data sheet
 STENCIL_CU = "src/repro_torch/kernels/stencil/csrc/stencil.cu"
 FLASH_CU = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+SSD_CU = "src/repro_torch/kernels/mamba2_scan/csrc/ssd_scan.cu"
+WKV_CU = "src/repro_torch/kernels/rwkv6_wkv/csrc/wkv6.cu"
 MAIN_N, MAIN_ITERS, MAIN_PROCS, MAIN_BLOCK = 16384, 6, 16, 2048
 PAPER_N, PAPER_BLOCK = 4096, 512
-# the LM path: SHAPES["prefill_32k"] (32 x 32768) cut to 2 x 8192 (twice
-# the 4096 window, so the window mask and the ring cache both run)
-LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "h2o-danube-3-4b", 2, 8192, 16
+# the LM paths: SHAPES["prefill_32k"] (32 x 32768) cut to 2 x 8192 (for
+# h2o-danube, twice the 4096 window, so the window mask and the ring
+# cache both run), then 16 greedy steps; each model at its published
+# width and depth, as its config (and the kernels' launches per prefill)
+LM_BATCH, LM_PROMPT, LM_NEW = 2, 8192, 16
+DANUBE = ("h2o-danube-3-4b", dict(n_layers=24, d_model=3840, n_heads=32, n_kv_heads=8,
+                                  hd=120, swa_window=4096, d_ff=10240, vocab_size=32000))
+ZAMBA = ("zamba2-2.7b", dict(n_layers=54, layer_pattern="MMMMMH" * 9, d_model=2560,
+                             ssm_expand=2, ssm_head_dim=64, ssm_state=64, n_heads=32,
+                             n_kv_heads=32, hd=80, swa_window=None, d_ff=10240,
+                             vocab_size=32000, tie_embeddings=True))
+RWKV = ("rwkv6-3b", dict(n_layers=32, layer_pattern="R", d_model=2560,
+                         rwkv_head_size=64, d_ff=8960, vocab_size=65536,
+                         tie_embeddings=False))
+# the recurrent kernels at their paths' shapes: x [b, s, h, p] with state
+# n, and r/k/v/w [B, T, H, N]
+SSD_PATH = (LM_BATCH, LM_PROMPT, 80, 64, 64)
+WKV_PATH = (LM_BATCH, LM_PROMPT, 40, 64)
+# tests/test_kernels.py's f32 tolerances; a bf16 output (the kernel and
+# its plain version both sum in f32 and round once) may differ by one
+# bf16 ulp of the largest output, 2^-7 of it
+SSD_TOL, WKV_TOL, BF16_REL = 2e-3, 1e-3, 2.0 ** -7
+# (b, s, h, p, n, with_state): tests/test_kernels.py's shapes, then a
+# ragged s and p, an n that is no multiple of 8, the largest n and one token
+SSD_CASES = [
+    (2, 64, 3, 16, 8, False), (1, 100, 2, 32, 16, True), (1, 256, 1, 64, 64, True),
+    (2, 333, 5, 20, 40, True), (1, 70, 2, 64, 128, True), (1, 1, 1, 1, 1, False),
+]
+# (B, T, H, N, with_state): tests/test_kernels.py's shapes, then a head
+# size that is no multiple of 32 (two column groups, one ragged), a small
+# one and one token
+WKV_CASES = [
+    (2, 64, 3, 16, False), (1, 100, 2, 32, True), (1, 128, 2, 64, True),
+    (2, 333, 3, 40, True), (1, 33, 1, 8, True), (1, 1, 1, 1, False),
+]
 FLASH_TOL = {"float32": 5e-4, "bfloat16": 5e-2}  # tests/test_kernels.py's
-# flash vs torch attention through the whole model: bf16 at 24 layers,
-# max |logit difference| over the max |logit|; f32 at 2 layers, absolute
-LM_BF16_REL_TOL, LM_F32_ABS_TOL = 5e-2, 5e-4
+# kernels vs torch twins through the whole model: bf16 at full depth,
+# max |logit difference| over the max |logit|; f32 at a few layers, absolute.
+# A model with random weights may amplify bf16 rounding past 5e-2 over
+# its depth (rwkv6 at d_model 256, on the CPU: a 1e-3 relative change of
+# the embeddings moves the residual stream by 0.9 of its size within 9
+# layers); there the bf16 bound is LM_NOISE_FACTOR times the twins' own
+# distance from the f32 twins
+LM_BF16_REL_TOL, LM_F32_ABS_TOL, LM_NOISE_FACTOR = 5e-2, 5e-4, 1.5
 # (B, Sq, Sk, H, KV, d, causal, window, sk_valid)
 FLASH_CASES = [
     (1, 64, 192, 2, 1, 80, True, None, None),      # cross-length, d 80
@@ -212,6 +267,76 @@ def phase_flash_vs_plain(fa, torch, gen) -> dict:
         f"heads, window 4096, in f32 and bf16); max |err| f32 {err['float32']:.3g}, "
         f"bf16 {err['bfloat16']:.3g}, path f32 {err['path_f32']:.3g}, "
         f"path bf16 {err['path']:.3g}")
+    return err
+
+
+def ssd_inputs(torch, gen, b, s, h, p, n, dtype, with_state=True):
+    """x, dt = softplus(N(0, 1)), A = -exp(N(0, 1/4)), B, C and an initial
+    state, drawn as tests/test_kernels.py draws them; x, B, C in ``dtype``,
+    the rest f32."""
+    f = lambda *shape: torch.randn(*shape, device=DEVICE, generator=gen)
+    x, dt = f(b, s, h, p).to(dtype), torch.nn.functional.softplus(f(b, s, h))
+    A = -torch.exp(f(h) * 0.5)
+    B, C = f(b, s, n).to(dtype), f(b, s, n).to(dtype)
+    s0 = f(b, h, p, n) if with_state else None
+    return x, dt, A, B, C, s0
+
+
+def wkv_inputs(torch, gen, B, T, H, N, dtype, with_state=True):
+    """r, k, v in ``dtype``; the decay w = 0.4 + 0.55 sigmoid(N(0, 1)), the
+    bonus u and an initial state in f32, as tests/test_kernels.py draws them."""
+    f = lambda *shape: torch.randn(*shape, device=DEVICE, generator=gen)
+    r, k, v = (f(B, T, H, N).to(dtype) for _ in range(3))
+    w = torch.sigmoid(f(B, T, H, N)) * 0.55 + 0.4
+    u = f(H, N)
+    s0 = f(B, H, N, N) if with_state else None
+    return r, k, v, w, u, s0
+
+
+def recurrent_err(name, got, want, tol) -> float:
+    """|kernel - plain| of (y, final state), asserted: the f32 state to
+    ``tol``, y to ``tol`` in f32 and to one bf16 ulp of its largest value
+    in bf16.  Returns the larger error."""
+    (y, fin), (y_ref, fin_ref) = got, want
+    e_y, e_f = max_abs_err(y, y_ref), max_abs_err(fin, fin_ref)
+    tol_y = tol if y.element_size() == 4 else BF16_REL * float(y_ref.double().abs().max())
+    assert y.dtype == y_ref.dtype and fin.dtype == fin_ref.dtype
+    assert e_y <= tol_y and e_f <= tol, (name, y.dtype, e_y, tol_y, e_f)
+    return max(e_y, e_f)
+
+
+def phase_recurrent_vs_plain(ssd, wkv, torch, gen) -> dict:
+    """The SSD scan and wkv kernels against their plain versions: the case
+    tables, then each path's own shape, in f32 and in the path's dtypes
+    (bf16 activations with f32 dt, decay and states).  Returns the largest
+    |kernel - plain| per kernel and dtype."""
+    err = {}
+    for name in ("float32", "bfloat16"):
+        dtype = getattr(torch, name)
+        e = 0.0
+        for b, s, h, p, n, with_state in SSD_CASES + [(*SSD_PATH, True)]:
+            ins = ssd_inputs(torch, gen, b, s, h, p, n, dtype, with_state)
+            got = ssd.ssd_scan(*ins)
+            want = ssd.ssd_scan_plain(*ins)
+            torch.cuda.synchronize()
+            e = max(e, recurrent_err(("ssd_scan", b, s, h, p, n), got, want, SSD_TOL))
+            del ins, got, want
+        err[("ssd_scan", name)] = e
+        e = 0.0
+        for B, T, H, N, with_state in WKV_CASES + [(*WKV_PATH, True)]:
+            ins = wkv_inputs(torch, gen, B, T, H, N, dtype, with_state)
+            got = wkv.wkv6(*ins)
+            want = wkv.wkv6_plain(*ins)
+            torch.cuda.synchronize()
+            e = max(e, recurrent_err(("wkv6", B, T, H, N), got, want, WKV_TOL))
+            del ins, got, want
+        err[("wkv6", name)] = e
+    log(f"[2] ssd_scan and wkv6 == plain versions on the card ({len(SSD_CASES)} + "
+        f"{len(WKV_CASES)} cases: ragged lengths, initial states, several heads, "
+        f"n 1..128, N 1..64; then the paths' shapes, SSD {list(SSD_PATH)} and wkv "
+        f"{list(WKV_PATH)}, with initial states; f32 tol {SSD_TOL} / {WKV_TOL}, "
+        f"bf16 y within one bf16 ulp of its largest value); max |err| "
+        f"{ {f'{k[0]} {k[1]}': f'{v:.3g}' for k, v in err.items()} }")
     return err
 
 
@@ -410,16 +535,17 @@ def profile_device(torch, what: str, fn) -> float:
     return total / 1e3
 
 
-def phase_lm(fa, torch) -> dict:
-    """The LM main path: prefill then greedy decode, flash launches counted."""
+def phase_lm(torch, tag: str, arch: str, expect: dict, kernels: dict) -> dict:
+    """One LM main path: prefill then greedy decode at full width and
+    depth, every kernel's launches counted.  ``kernels`` maps a kernel's
+    name to (its ops module, its launches per prefill)."""
     from repro_torch.configs import SHAPES, ShapeSpec
     from repro_torch.launch.steps import cell_config, make_prefill_step, make_serve_step
     from repro_torch.models import init_params
 
-    cfg = cell_config(LM_ARCH, "prefill_32k")
-    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-            cfg.swa_window, cfg.dtype, cfg.use_flash) == (
-        24, 3840, 32, 8, 120, 4096, "bfloat16", True), cfg
+    cfg = cell_config(arch, "prefill_32k")
+    got = {k: getattr(cfg, k) for k in expect}
+    assert got == expect and cfg.dtype == "bfloat16" and cfg.use_flash, (arch, got)
     full = SHAPES["prefill_32k"]
     shape = ShapeSpec(f"{full.name} cut to {LM_BATCH}x{LM_PROMPT}",
                       LM_PROMPT + LM_NEW, LM_BATCH, "prefill")
@@ -428,8 +554,10 @@ def phase_lm(fa, torch) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.parameters())
-    # param_count() leaves out the final norm's d_model weights
-    assert n_params == cfg.param_count() + cfg.d_model, (n_params, cfg.param_count())
+    if set(cfg.pattern) <= {"A", "D"}:
+        # param_count() is exact for attention blocks (the M/R counts are
+        # its own approximations) and leaves out the final norm
+        assert n_params == cfg.param_count() + cfg.d_model, (n_params, cfg.param_count())
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), device=DEVICE,
                            generator=gen, dtype=torch.int32)
@@ -440,12 +568,13 @@ def phase_lm(fa, torch) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    fa.reset_launches()
+    for mod, _ in kernels.values():
+        mod.reset_launches()
     t0 = time.perf_counter()
     last, state = prefill_step(params, batch)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    n_prefill = fa.launches["flash_attention"]
+    n_prefill = {name: mod.launches[name] for name, (mod, _) in kernels.items()}
     toks = [last.argmax(-1).to(torch.int32)]
     step_s = []
     for _ in range(LM_NEW):
@@ -454,26 +583,34 @@ def phase_lm(fa, torch) -> dict:
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         toks.append(nxt)
-    n_total = fa.launches["flash_attention"]
+    n_decode = {name: mod.launches[name] - n_prefill[name]
+                for name, (mod, _) in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
 
-    assert n_prefill == cfg.n_layers, f"prefill launched flash {n_prefill} times"
-    assert n_total == n_prefill, f"decode launched flash {n_total - n_prefill} times"
+    for name, (_, per_prefill) in kernels.items():
+        assert n_prefill[name] == per_prefill, f"prefill launched {name} {n_prefill[name]} times"
+        assert n_decode[name] == 0, f"decode launched {name} {n_decode[name]} times"
     assert last.shape == (LM_BATCH, cfg.vocab_size) and torch.isfinite(last).all()
     assert state.pos.tolist() == [LM_PROMPT + LM_NEW] * LM_BATCH
-    ring = state.segs[0][0]["0A"]["att"]["k"]
-    assert ring.shape == (LM_BATCH, cfg.swa_window, cfg.n_kv_heads, cfg.hd)
-    kv_bytes = 2 * cfg.n_layers * ring.numel() * ring.element_size()
+    # the device memory the decode state holds: its tensors' storages, so
+    # that a view into a larger activation counts the whole activation
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for rep in state.segs for blocks in rep for blk in blocks.values()
+                for v in blk.values()
+                for t in (v.values() if isinstance(v, dict) else (v,))}
+    state_bytes = sum(storages.values())
     step_ms = statistics.median(step_s) * 1e3
-    log(f"[7] LM main path: {LM_ARCH} full width and depth ({n_params / 1e9:.3f} B "
-        f"params, bf16, seed 0; init {init_s:.2f} s), {LM_BATCH} prompts x "
-        f"{LM_PROMPT} tokens, max_len {shape.seq_len}, then {LM_NEW} greedy steps")
+    log(f"[{tag}] LM main path: {arch} full width and depth ({cfg.n_layers} layers "
+        f"{cfg.pattern[:6]}..., {n_params / 1e9:.3f} B params, bf16, seed 0; init "
+        f"{init_s:.2f} s), {LM_BATCH} prompts x {LM_PROMPT} tokens, max_len "
+        f"{shape.seq_len}, then {LM_NEW} greedy steps")
     log(f"    prefill {prefill_s:.3f} s ({LM_BATCH * LM_PROMPT / prefill_s:.0f} "
-        f"tokens/s); flash launches: prefill {n_prefill}, decode {n_total - n_prefill}")
+        f"tokens/s); launches in prefill {n_prefill}, in decode {n_decode}")
     log(f"    decode median {step_ms:.2f} ms/step (min {min(step_s) * 1e3:.2f}, max "
         f"{max(step_s) * 1e3:.2f}), {LM_BATCH / (step_ms / 1e3):.1f} tokens/s at "
-        f"batch {LM_BATCH}; ring KV cache {kv_bytes / 1e9:.3f} GB; peak device "
-        f"memory {peak / 1e9:.2f} GB; logits finite")
+        f"batch {LM_BATCH}; decode state (caches, recurrent states) "
+        f"{state_bytes / 1e9:.3f} GB; peak device memory {peak / 1e9:.2f} GB; "
+        f"logits finite")
     log(f"    greedy tokens, sequence 0: {[int(t[0]) for t in toks]}")
     profile_device(torch, "one prefill", lambda: prefill_step(params, batch))
     dev_ms = profile_device(torch, "one decode step",
@@ -482,48 +619,71 @@ def phase_lm(fa, torch) -> dict:
         log(f"    decode: device busy {dev_ms:.2f} ms of a {step_ms:.2f} ms median "
             f"step, idle share {1 - dev_ms / step_ms:.3f}")
     return dict(cfg=cfg, shape=shape, params=params, batch=batch, toks=toks,
-                launches=n_prefill)
+                launches=n_prefill, arch=arch)
 
 
-def phase_lm_agreement(torch, lm: dict) -> None:
-    """The flash path against the torch ``chunked_attention`` path on the
-    same prompts, decode teacher-forced on phase 7's tokens."""
-    from repro_torch.models import decode_step, init_params, prefill
+def teacher_forced(torch, cfg, params, batch, toks, max_len) -> list:
+    """Prefill's last logits, then the logits of a decode step fed each
+    token of ``toks`` but the last, as f32."""
+    from repro_torch.models import decode_step, prefill
+
+    last, st = prefill(cfg, params, batch, max_len)
+    outs = [last.float()]
+    for t in toks[:-1]:
+        lg, st = decode_step(cfg, params, t, st)
+        assert torch.isfinite(lg).all()
+        outs.append(lg.float())
+    return outs
+
+
+def phase_lm_agreement(torch, tag: str, lm: dict, f32_kw: dict) -> None:
+    """The kernel path (``use_flash=True``) against the torch twins
+    (``use_flash=False``) on the same prompts, decode teacher-forced on the
+    greedy tokens: in bf16 at full depth, beside the twins in f32 on the
+    same weights (upcast) as the yardstick of the model's own bf16 noise;
+    then in f32 at full width with the layers ``f32_kw`` keeps."""
+    from repro_torch.models import Model, init_params
 
     cfg, params, batch, toks = lm["cfg"], lm["params"], lm["batch"], lm["toks"]
     max_len = lm["shape"].seq_len
-    ref = cfg.replace(use_flash=False)
-    last_f, st_f = prefill(cfg, params, batch, max_len)
-    last_r, st_r = prefill(ref, params, batch, max_len)
-    errs, same = [rel_err(last_f, last_r)], [bool((last_f.argmax(-1) == last_r.argmax(-1)).all())]
-    for t in toks[:-1]:
-        lf, st_f = decode_step(cfg, params, t, st_f)
-        lr, st_r = decode_step(ref, params, t, st_r)
-        assert torch.isfinite(lf).all()
-        errs.append(rel_err(lf, lr))
-        same.append(bool((lf.argmax(-1) == lr.argmax(-1)).all()))
-    worst = max(errs)
-    assert worst <= LM_BF16_REL_TOL, errs
-    log(f"[8] flash vs torch attention, bf16, 24 layers: max |logit diff| / max "
-        f"|logit| {worst:.4f} (tol {LM_BF16_REL_TOL}) over prefill + {len(toks) - 1} "
-        f"teacher-forced steps; greedy tokens agree at {sum(same)}/{len(same)} "
-        f"positions; per step {[round(e, 4) for e in errs]}")
-    del params, lm["params"], st_f, st_r
+    kern = teacher_forced(torch, cfg, params, batch, toks, max_len)
+    twin = teacher_forced(torch, cfg.replace(use_flash=False), params, batch, toks, max_len)
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32", use_flash=False)
+    p32 = Model(cfg32, DEVICE)
+    with torch.no_grad():
+        for a, b in zip(p32.parameters(), params.parameters(), strict=True):
+            a.copy_(b)
+    del params, lm["params"]
     torch.cuda.empty_cache()
+    exact = teacher_forced(torch, cfg32, p32, batch, toks, max_len)
+    del p32
+    torch.cuda.empty_cache()
+    k_t = [rel_err(a, b) for a, b in zip(kern, twin)]
+    k_x = [rel_err(a, b) for a, b in zip(kern, exact)]
+    t_x = [rel_err(a, b) for a, b in zip(twin, exact)]
+    same = sum(bool((a.argmax(-1) == b.argmax(-1)).all()) for a, b in zip(kern, twin))
+    # the danube tolerance, or half again the twins' own distance from f32
+    # where the model amplifies bf16 rounding beyond it
+    tol = max(LM_BF16_REL_TOL, LM_NOISE_FACTOR * max(t_x))
+    assert max(k_t) <= tol and max(k_x) <= tol, (k_t, k_x, t_x)
+    log(f"[{tag}] {lm['arch']}: kernels vs torch twins, bf16, {cfg.n_layers} layers, "
+        f"max |logit diff| / max |logit| over prefill + {len(toks) - 1} teacher-forced "
+        f"steps: {max(k_t):.4f} (tol {tol:.4f} = max({LM_BF16_REL_TOL}, "
+        f"{LM_NOISE_FACTOR} x the twins' distance from f32)); from the f32 twins: "
+        f"kernels {max(k_x):.4f}, twins {max(t_x):.4f}; greedy tokens agree at "
+        f"{same}/{len(kern)} positions; per step {[round(e, 4) for e in k_t]}")
 
-    cfg32 = cfg.replace(n_layers=2, dtype="float32", param_dtype="float32")
+    cfg32 = cfg32.replace(use_flash=True, **f32_kw)
     p32 = init_params(cfg32, seed=0)
-    last_f, st_f = prefill(cfg32, p32, batch, max_len)
-    last_r, st_r = prefill(cfg32.replace(use_flash=False), p32, batch, max_len)
-    errs = [max_abs_err(last_f, last_r)]
-    for t in toks[:4]:
-        lf, st_f = decode_step(cfg32, p32, t, st_f)
-        lr, st_r = decode_step(cfg32.replace(use_flash=False), p32, t, st_r)
-        errs.append(max_abs_err(lf, lr))
+    kern = teacher_forced(torch, cfg32, p32, batch, toks[:5], max_len)
+    twin = teacher_forced(torch, cfg32.replace(use_flash=False), p32, batch, toks[:5], max_len)
+    errs = [max_abs_err(a, b) for a, b in zip(kern, twin)]
     assert max(errs) <= LM_F32_ABS_TOL, errs
-    log(f"    f32, full width, 2 layers: max |logit diff| {max(errs):.3g} (tol "
-        f"{LM_F32_ABS_TOL}; max |logit| {float(last_r.abs().max()):.3f}) over "
-        f"prefill + 4 teacher-forced steps")
+    log(f"    f32, full width, {cfg32.n_layers} layers ({cfg32.pattern}): max |logit "
+        f"diff| {max(errs):.3g} (tol {LM_F32_ABS_TOL}; max |logit| "
+        f"{float(twin[0].abs().max()):.3f}) over prefill + 4 teacher-forced steps")
+    del p32
+    torch.cuda.empty_cache()
 
 
 def valid_pairs(S: int, window: int, B: int, H: int) -> int:
@@ -554,7 +714,8 @@ def phase_flash_times(fa, torch, gen, launches: int, err: dict) -> dict:
     flops = 4 * d * pairs  # q.k and p.v: 2 d multiply-adds per kept pair
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())  # bf16 q, k, v, out
     bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3
-    log(f"[9] flash_attention [{B}, {S}, {H}, {d}] / {KV} KV heads, window {W}, bf16: "
+    log(f"[13] flash_attention [{B}, {S}, {H}, {d}] / {KV} KV heads, window {W}, bf16 "
+        f"(the h2o-danube path's shape; {launches} launches over the LM prefills): "
         f"kernel {ms:.3f} ms | bound {bound_ms:.4f} ms ({pairs / 1e9:.3f} G kept pairs "
         f"x {4 * d} flop at 989 TFLOP/s; bytes {nbytes / 1e6:.1f} MB at 3.35 TB/s = "
         f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms) | plain {plain_ms:.3f} ms | "
@@ -571,6 +732,63 @@ def phase_flash_times(fa, torch, gen, launches: int, err: dict) -> dict:
     )
 
 
+def phase_recurrent_times(ssd, wkv, torch, gen, launches: dict, err: dict) -> list:
+    """The SSD scan and wkv kernels at their paths' shapes and dtypes (bf16
+    activations, f32 dt / decay, zero initial state as a fresh prefill
+    passes it), beside their bounds and plain versions.  No single
+    PyTorch call computes either recurrence, so neither has a library
+    time."""
+    records = []
+    b, s, h, p, n = SSD_PATH
+    x, dt, A, B, C, _ = ssd_inputs(torch, gen, b, s, h, p, n, torch.bfloat16, False)
+    s0 = torch.zeros(b, h, p, n, device=DEVICE)
+    ms = cuda_ms(lambda: ssd.ssd_scan(x, dt, A, B, C, s0))
+    plain_ms = cuda_ms(lambda: ssd.ssd_scan_plain(x, dt, A, B, C, s0), reps=2, warmup=1)
+    outs = ssd.ssd_scan(x, dt, A, B, C, s0)
+    nbytes = sum(t.numel() * t.element_size() for t in (x, dt, A, B, C, s0, *outs))
+    flops = 4 * b * s * h * p * n  # state update and output: 2 multiply-adds an entry
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3
+    records.append(dict(
+        name="ssd_scan", route="cuda", source=SSD_CU,
+        replaces="src/repro/kernels/mamba2_scan/kernel.py:94",
+        launches=launches["ssd_scan"], max_abs_err=err[("ssd_scan", "bfloat16")],
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S
+        else "operations", library_ms=None,
+    ))
+    log(f"[14] ssd_scan x [{b}, {s}, {h}, {p}] n {n}, bf16 x/B/C, f32 dt/A/state: "
+        f"kernel {ms:.3f} ms | bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at "
+        f"3.35 TB/s; {flops / 1e9:.1f} GFLOP = {flops / BF16_FLOP_PER_S * 1e3:.4f} ms "
+        f"at 989 TFLOP/s, {flops / 67e12 * 1e3:.4f} ms at the 67 TFLOP/s f32 rate) | "
+        f"plain {plain_ms:.1f} ms | library: none (no single PyTorch call computes "
+        f"the scan) | {nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
+    del x, dt, A, B, C, s0, outs
+    B_, T, H, N = WKV_PATH
+    r, k, v, w, u, _ = wkv_inputs(torch, gen, B_, T, H, N, torch.bfloat16, False)
+    s0 = torch.zeros(B_, H, N, N, device=DEVICE)
+    ms = cuda_ms(lambda: wkv.wkv6(r, k, v, w, u, s0))
+    plain_ms = cuda_ms(lambda: wkv.wkv6_plain(r, k, v, w, u, s0), reps=2, warmup=1)
+    outs = wkv.wkv6(r, k, v, w, u, s0)
+    nbytes = sum(t.numel() * t.element_size() for t in (r, k, v, w, u, s0, *outs))
+    flops = 4 * B_ * T * H * N * N
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3
+    records.append(dict(
+        name="wkv6", route="cuda", source=WKV_CU,
+        replaces="src/repro/kernels/rwkv6_wkv/kernel.py:88",
+        launches=launches["wkv6"], max_abs_err=err[("wkv6", "bfloat16")],
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S
+        else "operations", library_ms=None,
+    ))
+    log(f"[14] wkv6 r/k/v [{B_}, {T}, {H}, {N}] bf16, f32 w/u/state: kernel {ms:.3f} ms "
+        f"| bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s; "
+        f"{flops / 1e9:.1f} GFLOP = {flops / BF16_FLOP_PER_S * 1e3:.4f} ms at 989 "
+        f"TFLOP/s, {flops / 67e12 * 1e3:.4f} ms at the 67 TFLOP/s f32 rate) | plain "
+        f"{plain_ms:.1f} ms | library: none (no single PyTorch call computes the "
+        f"recurrence) | {nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -580,6 +798,8 @@ def main() -> int:
     import repro_torch
     from repro_torch import apps
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_scan as ssd
+    from repro_torch.kernels import rwkv6_wkv as wkv
     from repro_torch.kernels import stencil as ks
 
     # f32 products in full f32, as the CPU reference computes them
@@ -590,8 +810,9 @@ def main() -> int:
     log(f"[0] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"numpy {np.__version__} | python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source
-        builds = [pool.submit(mod.load) for mod in (ks, fa)]
+    libs = (ks, fa, ssd, wkv)
+    with ThreadPoolExecutor(max_workers=len(libs)) as pool:  # one nvcc per source
+        builds = [pool.submit(mod.load) for mod in libs]
         built = [b.result() for b in builds]
     log(f"[1] built {', '.join(b.path.name for b in built)} in "
         f"{time.perf_counter() - t0:.2f} s (nvcc "
@@ -603,17 +824,30 @@ def main() -> int:
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     err = phase_kernels_vs_plain(ks, torch, gen)
     flash_err = phase_flash_vs_plain(fa, torch, gen)
+    rec_err = phase_recurrent_vs_plain(ssd, wkv, torch, gen)
+    torch.cuda.empty_cache()
     main_info = phase_main_path(repro_torch, apps, ks)
     phase_paper_regime(repro_torch, apps, ks)
     phase_overlap_probe(repro_torch, apps)
     records = phase_times(ks, torch, gen, main_info, err)
     torch.cuda.empty_cache()
-    lm = phase_lm(fa, torch)
-    phase_lm_agreement(torch, lm)
-    launches = lm["launches"]
-    del lm
+    launches = {}
+    for tags, (arch, expect), kernels, f32_kw in (
+        (("7", "8"), DANUBE, {"flash_attention": (fa, 24)}, dict(n_layers=2)),
+        (("9", "10"), ZAMBA, {"ssd_scan": (ssd, 54), "flash_attention": (fa, 9)},
+         dict(n_layers=6, layer_pattern="MMMMMH")),
+        (("11", "12"), RWKV, {"wkv6": (wkv, 32)}, dict(n_layers=2)),
+    ):
+        lm = phase_lm(torch, tags[0], arch, expect, kernels)
+        phase_lm_agreement(torch, tags[1], lm, f32_kw)
+        for name, n in lm["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+        del lm
+        torch.cuda.empty_cache()
+    records.append(phase_flash_times(fa, torch, gen, launches["flash_attention"],
+                                     flash_err))
     torch.cuda.empty_cache()
-    records.append(phase_flash_times(fa, torch, gen, launches, flash_err))
+    records += phase_recurrent_times(ssd, wkv, torch, gen, launches, rec_err)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": records}))
     log(card)

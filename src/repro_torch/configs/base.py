@@ -14,9 +14,12 @@ layer.
 
 The port's copy of ``repro.configs.base``: the same fields and defaults,
 with torch dtypes (``tdtype``/``tparam_dtype``) in place of the jnp ones.
-One default differs: ``use_flash`` is True, so prefill attention goes to
-the hand-written CUDA flash kernel (``repro_torch.kernels.flash_attention``).
-The JAX package never reads the field, so no JAX result depends on it.
+One default differs: ``use_flash`` is True, so prefill goes to the
+hand-written CUDA kernels: attention to the flash kernel
+(``repro_torch.kernels.flash_attention``), the Mamba2 scan to the SSD
+kernel (``kernels.mamba2_scan``), the RWKV6 recurrence to the wkv kernel
+(``kernels.rwkv6_wkv``); False runs the torch twins of the JAX code.  The
+JAX package never reads the field, so no JAX result depends on it.
 """
 from __future__ import annotations
 
@@ -89,8 +92,10 @@ class ModelConfig:
     opt_state_dtype: str = "float32"  # bf16 for the >100B archs
     remat: bool = True
     scan_layers: bool = True
-    # prefill attention on the CUDA flash kernel (the one default that
-    # differs from repro.configs.base, where the field is never read)
+    # prefill on the hand-written CUDA kernels (flash attention, the SSD
+    # scan, the wkv recurrence); False runs their torch twins
+    # (chunked_attention, ssd_chunked, wkv_chunked).  The one default that
+    # differs from repro.configs.base, where the field is never read
     use_flash: bool = True
     attn_chunk: int = 1024  # KV-chunk for the online-softmax jnp path
     overlap: str = "ring"  # paper technique: "ring" (LH) | "none" (blocking)

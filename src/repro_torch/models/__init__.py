@@ -3,9 +3,10 @@
 Parameters are an ``nn.Module`` tree (``Model``) under the JAX package's
 key names, built by ``init_params(cfg, seed, device)`` or carried over
 from JAX by ``convert.params_from_jax``; the forward passes are plain
-functions of ``(cfg, params, inputs)``.  Attention-only architectures
-(block letters ``A``/``D``) are ported; prefill attention runs on the
-hand-written CUDA flash kernel.
+functions of ``(cfg, params, inputs)``.  The attention (``A``/``D``),
+Mamba2 (``M``), zamba2 hybrid (``H``) and RWKV6 (``R``) blocks are
+ported; with ``cfg.use_flash`` prefill runs on the hand-written CUDA
+kernels (flash attention, the SSD scan, the wkv recurrence).
 """
 from .model import (
     DecodeState,

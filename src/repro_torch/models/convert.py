@@ -5,8 +5,9 @@
 (``jax.tree.map(np.asarray, params)``), and returns the port's
 :class:`~repro_torch.models.model.Model` holding the same weights.  A
 segment whose reps the JAX package stacks along a leading axis is
-un-stacked into one module per rep.  Importing this module imports no
-JAX: it reads numpy arrays only.
+un-stacked into one module per rep; zamba2's ``shared_attn`` block and
+the Mamba2 and RWKV6 leaves (the f32 ones included) come over as they
+are.  Importing this module imports no JAX: it reads numpy arrays only.
 
 bf16 leaves arrive as numpy arrays of ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` refuses.  They cross as their bits: a ``uint16``
@@ -54,14 +55,20 @@ def params_from_jax(cfg, tree, device=None) -> Model:
     put(model.final_norm, tree["final_norm"], "final_norm")
     if not cfg.tie_embeddings:
         put(model.unembed, tree["unembed"], "unembed")
+    def walk(subtree, name: str):
+        for part in name.split("."):
+            subtree = subtree[part]
+        return subtree
+
     for si, seg in enumerate(plan_segments(cfg)):
         for r in range(seg.reps):
             for key, block in model.segs[si][r].items():
                 for name, param in block.named_parameters():
-                    leaf = tree["segs"][si][key]
-                    for part in name.split("."):
-                        leaf = leaf[part]
+                    leaf = walk(tree["segs"][si][key], name)
                     if seg.reps > 1:
                         leaf = np.asarray(leaf)[r]
                     put(param, leaf, f"segs[{si}][{key!r}].{name}[{r}]")
+    if hasattr(model, "shared_attn"):
+        for name, param in model.shared_attn.named_parameters():
+            put(param, walk(tree["shared_attn"], name), f"shared_attn.{name}")
     return model

@@ -1,27 +1,36 @@
-"""Model assembly for the attention-only architectures (letters ``A``/``D``).
+"""Model assembly: the attention (``A``/``D``), Mamba2 (``M``), zamba2
+hybrid (``H``) and RWKV6 (``R``) architectures.
 
 The port of ``repro.models.model``.  Parameters live in an ``nn.Module``
 tree under the JAX package's key names: a :class:`Model` holds ``embed``
 [V, D], ``final_norm``, ``unembed`` [D, V] (absent when the embeddings
-are tied) and ``segs[i][r]["{j}{letter}"]``, the :class:`Block` at body
-position j of rep r of segment i (``plan_segments``).  The JAX package
-stacks a segment's reps along a leading axis for ``lax.scan``; the port
-keeps one module per rep and loops.
+are tied), ``shared_attn`` (zamba2's one attention + MLP :class:`Block`,
+present when the pattern has an ``H``) and ``segs[i][r]["{j}{letter}"]``,
+the block at body position j of rep r of segment i (``plan_segments``):
+a :class:`Block` for ``A``/``D``, a :class:`MambaBlock` (``ln``,
+``mamba``) for ``M``/``H``, an :class:`~repro_torch.models.rwkv6.RWKV6`
+for ``R``.  The JAX package stacks a segment's reps along a leading axis
+for ``lax.scan``; the port keeps one module per rep and loops.  An ``H``
+layer runs ``shared_attn`` (with its own KV cache) and then its own
+Mamba2 mixer.
 
 ``prefill`` and ``decode_step`` are plain functions on an explicit
-:class:`DecodeState`.  Both update its caches in place and return it.
+:class:`DecodeState`.  Both update it in place and return it.
 
-Prefill attention goes to the hand-written flash kernel when
-``cfg.use_flash`` (the port's default) wherever the call fits the
-kernel's contract — queries from position 0, keys masked past a static
+``cfg.use_flash`` (the port's default) sends prefill to the hand-written
+CUDA kernels: attention to the flash kernel wherever the call fits its
+contract — queries from position 0, keys masked past a static
 ``sk_valid``: the cache-free forward, and a prefill into a fresh decode
-state (ring or not).  Decode steps and everything else run the torch
-``chunked_attention``, as the JAX package runs them.
+state (ring or not) — the Mamba2 sequence scan to the SSD kernel and the
+RWKV6 recurrence to the wkv kernel.  ``use_flash=False`` runs the torch
+twins of the JAX package's jnp code instead (``chunked_attention``,
+``ssd_chunked``, ``wkv_chunked``).  Decode steps run the torch code
+(``chunked_attention``, ``ssd_step``, ``wkv_step``), as the JAX package
+runs them.
 
-Not ported yet (see ROADMAP.md): the letters ``E`` (MoE), ``M``/``H``
-(Mamba2, zamba2 hybrid) and ``R`` (RWKV6), MLA, the encoder-decoder
-(whisper) and the VLM image prefix; a config that needs one raises
-``NotImplementedError``.
+Not ported yet (see ROADMAP.md): the letter ``E`` (MoE), MLA, the
+encoder-decoder (whisper) and the VLM image prefix; a config that needs
+one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ from torch import nn
 
 from repro_torch.kernels.flash_attention import flash_attention
 
+from . import mamba2, rwkv6
 from .attention import Attention, chunked_attention, mla_init, write_cache
 from .hints import shard_hint
 from .layers import (
@@ -44,9 +54,12 @@ from .layers import (
     resolve_device,
     rmsnorm,
 )
+from .mamba2 import Mamba2, init_mamba2_state, mamba2_apply, mamba2_step
+from .rwkv6 import RWKV6, init_rwkv6_state, rwkv6_apply, rwkv6_step
 
 __all__ = [
     "Block",
+    "MambaBlock",
     "Model",
     "DecodeState",
     "Segment",
@@ -58,7 +71,13 @@ __all__ = [
     "make_decode_state",
 ]
 
-_PORTED_LETTERS = ("A", "D")
+_PORTED_LETTERS = ("A", "D", "M", "H", "R")
+_MAMBA_STATE_KEYS = ("conv_x", "conv_B", "conv_C", "ssm")
+# init_params: the leaves the JAX package fills with a constant, and the
+# scale of those drawn at another scale than 1/sqrt(fan_in)
+_CONST_INIT = {"ln1": 1.0, "ln2": 1.0, "ln": 1.0, "final_norm": 1.0,
+               **mamba2.CONST_INIT, **rwkv6.CONST_INIT}
+_SCALED_INIT = {"embed": 0.02, **rwkv6.SCALED_INIT}
 
 
 # ---------------------------------------------------------------------------
@@ -100,21 +119,19 @@ def plan_segments(cfg) -> tuple[Segment, ...]:
 
 
 def _check_ported(cfg) -> None:
-    missing = sorted(set(cfg.pattern) - set(_PORTED_LETTERS))
+    unknown = sorted(set(cfg.pattern) - set(_PORTED_LETTERS) - {"E"})
+    if unknown:
+        raise ValueError(f"{cfg.arch_id}: unknown block letters {unknown}")
+    missing = [what for what, needed in (
+        ("the MoE block (letter E)", "E" in cfg.pattern),
+        ("MLA attention", cfg.attn_impl == "mla"),
+        ("the encoder-decoder stack", cfg.enc_dec),
+        ("the VLM image prefix", bool(cfg.n_img_tokens)),
+    ) if needed]
     if missing:
         raise NotImplementedError(
-            f"{cfg.arch_id}: block letters {missing} (MoE E, Mamba2 M/H, "
-            f"RWKV6 R) are not ported to repro_torch yet: see ROADMAP.md, queue 1"
-        )
-    if cfg.enc_dec:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the encoder-decoder stack is not ported to "
-            f"repro_torch yet: see ROADMAP.md, queue 1"
-        )
-    if cfg.n_img_tokens:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the VLM image prefix is not ported to "
-            f"repro_torch yet: see ROADMAP.md, queue 1"
+            f"{cfg.arch_id}: {', '.join(missing)} not ported to repro_torch "
+            f"yet: see ROADMAP.md, queue 1"
         )
 
 
@@ -131,6 +148,24 @@ class Block(nn.Module):
         self.ln2 = nn.Parameter(torch.ones(D, dtype=dt, device=device),
                                 requires_grad=False)
         self.mlp = MLP(D, cfg.d_ff, cfg.act, dt, device)
+
+
+class MambaBlock(nn.Module):
+    """Pre-norm Mamba2 block (letters ``M`` and ``H``): ``ln``, ``mamba``."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.ln = nn.Parameter(torch.ones(cfg.d_model, dtype=cfg.tparam_dtype,
+                                          device=device), requires_grad=False)
+        self.mamba = Mamba2(cfg, device)
+
+
+def _block(cfg, letter: str, device) -> nn.Module:
+    if letter in ("A", "D"):
+        return Block(cfg, device)
+    if letter in ("M", "H"):
+        return MambaBlock(cfg, device)
+    return RWKV6(cfg, device)  # "R": the block is the RWKV6 leaves themselves
 
 
 class Model(nn.Module):
@@ -150,29 +185,33 @@ class Model(nn.Module):
             self.unembed = nn.Parameter(torch.empty(D, V, **kw), requires_grad=False)
         self.segs = nn.ModuleList(
             nn.ModuleList(
-                nn.ModuleDict({f"{j}{letter}": Block(cfg, device)
+                nn.ModuleDict({f"{j}{letter}": _block(cfg, letter, device)
                                for j, letter in enumerate(seg.body)})
                 for _ in range(seg.reps)
             )
             for seg in plan_segments(cfg)
         )
+        if "H" in cfg.pattern:  # zamba2's single shared attention+MLP block
+            self.shared_attn = Block(cfg, device)
 
 
 @torch.no_grad()
 def init_params(cfg, seed: int = 0, device=None) -> Model:
-    """Random weights from ``torch.Generator(device).manual_seed(seed)``:
-    norms at one, ``embed`` truncated-normal × 0.02, every other matrix
-    truncated-normal × 1/sqrt(fan_in), as ``repro.models.init_params``
-    draws them (with other random numbers)."""
+    """Random weights from ``torch.Generator(device).manual_seed(seed)``,
+    of the kinds ``repro.models.init_params`` draws (with other random
+    numbers): norm gains at one and biases at zero, the Mamba2 and RWKV6
+    constants (``A_log`` 0, ``D`` 1, ``dt_bias`` 0, ``mu_x``/``cm_mu``
+    0.5, ``w0`` −0.6), ``embed`` truncated-normal × 0.02, ``u`` × 0.5,
+    every other leaf truncated-normal × 1/sqrt(fan_in)."""
     device = resolve_device(device)
     model = Model(cfg, device)
     gen = torch.Generator(device=device).manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf in ("ln1", "ln2", "final_norm"):
-            p.fill_(1)
+        if leaf in _CONST_INIT:
+            p.fill_(_CONST_INIT[leaf])
         else:
-            dense_init(p, gen, scale=0.02 if leaf == "embed" else None)
+            dense_init(p, gen, scale=_SCALED_INIT.get(leaf))
     return model
 
 
@@ -277,14 +316,62 @@ def _gqa(cfg, p: Attention, x, *, pos, cache, cache_pos, window, ring, fresh):
 # ---------------------------------------------------------------------------
 
 
+def _apply_block(cfg, letter, p, x, *, pos, st, cache_pos, shared, fresh):
+    """Run one block.  ``st``: None (no state) or this block's decode
+    state.  Returns (x, new_st, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new = None if st is None else {}
+    if letter in ("A", "D", "H"):
+        # an H layer runs the shared attention block first (zamba2), with
+        # its own KV cache, then its own mamba mixer
+        cache = None if st is None else {"att": st["att"], "pos": cache_pos}
+        x, new_att, aux = _attn_block(
+            cfg, shared if letter == "H" else p, x,
+            pos=pos, cache=cache, window=cfg.swa_window, fresh=fresh,
+        )
+        if st is not None:
+            new["att"] = new_att
+        if letter != "H":
+            return x, new, aux
+    if letter in ("M", "H"):
+        h = rmsnorm(x, p.ln)
+        if st is None:
+            m, _ = mamba2_apply(cfg, p.mamba, h)
+            return x + m, None, aux
+        ms = {k: st[k] for k in _MAMBA_STATE_KEYS}
+        if x.shape[1] == 1:
+            m, ms = mamba2_step(cfg, p.mamba, h, ms)
+        else:
+            m, ms = mamba2_apply(cfg, p.mamba, h, init_state=ms)
+        return x + m, {**new, **ms}, aux
+    # "R"
+    if st is None:
+        y, _ = rwkv6_apply(cfg, p, x)
+        return y, None, aux
+    if x.shape[1] == 1:
+        return (*rwkv6_step(cfg, p, x, st), aux)
+    return (*rwkv6_apply(cfg, p, x, state=st), aux)
+
+
 @dataclass
 class DecodeState:
-    """Per-block KV caches and the next position.
+    """Per-block decode state and the next position.
 
-    ``segs[i][r]["{j}{letter}"]["att"]`` is ``{"k", "v"}``, each
-    ``[B, L, KV, hd]`` in ``cfg.dtype``, where L is ``max_len``, or the
-    sliding window when that is smaller (a ring: position p at slot
-    p % L).  ``pos`` [B] int32 is the position the next token takes."""
+    ``segs[i][r]["{j}{letter}"]`` is a dict of tensors, shaped as the JAX
+    package's ``_block_state`` shapes them (without the reps axis):
+
+    - ``A``/``D``: ``att`` = ``{"k", "v"}``, each ``[B, L, KV, hd]`` in
+      ``cfg.dtype``, where L is ``max_len``, or the sliding window when
+      that is smaller (a ring: position p at slot p % L);
+    - ``M``: ``conv_x`` ``[B, K-1, d_in]``, ``conv_B``/``conv_C``
+      ``[B, K-1, n]`` (the convolutions' last inputs, ``cfg.dtype``) and
+      ``ssm`` ``[B, nh, head_dim, n]`` f32;
+    - ``H``: ``att`` (the shared block's cache at this layer) and the
+      ``M`` entries;
+    - ``R``: ``shift_tm``/``shift_cm`` ``[B, D]`` (``cfg.dtype``) and
+      ``wkv`` ``[B, H, N, N]`` f32.
+
+    ``pos`` [B] int32 is the position the next token takes."""
 
     segs: list
     pos: torch.Tensor
@@ -294,22 +381,22 @@ def _trunk(cfg, params: Model, x, *, pos, state: Optional[DecodeState] = None,
            fresh: bool = False):
     """Run all segments.  Returns (x, new_state, aux_total)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    shared = getattr(params, "shared_attn", None)
     for si, seg in enumerate(plan_segments(cfg)):
         for r in range(seg.reps):
             for j, letter in enumerate(seg.body):
                 key = f"{j}{letter}"
-                cache = None
-                if state is not None:
-                    cache = {"att": state.segs[si][r][key]["att"], "pos": state.pos}
-                x, new_att, aux_b = _attn_block(
-                    cfg, params.segs[si][r][key], x,
-                    pos=pos, cache=cache, window=cfg.swa_window, fresh=fresh,
+                st = None if state is None else state.segs[si][r][key]
+                x, new_b, aux_b = _apply_block(
+                    cfg, letter, params.segs[si][r][key], x, pos=pos, st=st,
+                    cache_pos=None if state is None else state.pos,
+                    shared=shared, fresh=fresh,
                 )
                 if cfg.act_sharding:
                     x = shard_hint(x, "dp", None, None)
                 aux_total = aux_total + aux_b
                 if state is not None:
-                    state.segs[si][r][key]["att"] = new_att
+                    state.segs[si][r][key] = new_b
     if state is not None:
         state.pos = state.pos + x.shape[1]
     return x, state, aux_total
@@ -346,7 +433,8 @@ def forward(cfg, params: Model, batch):
 
 def make_decode_state(cfg, batch_size: int, max_len: int, *, start_pos=None,
                       device=None) -> DecodeState:
-    """Empty decode state: zeroed caches, ``pos`` = ``start_pos`` or 0."""
+    """Empty decode state: zeroed caches and recurrent states, ``pos`` =
+    ``start_pos`` or 0."""
     _check_ported(cfg)
     device = resolve_device(device)
     L = max_len
@@ -354,12 +442,21 @@ def make_decode_state(cfg, batch_size: int, max_len: int, *, start_pos=None,
         L = min(max_len, cfg.swa_window)  # ring buffer
     shape = (batch_size, L, cfg.n_kv_heads, cfg.hd)
 
-    def att():
-        return {"k": torch.zeros(shape, dtype=cfg.tdtype, device=device),
-                "v": torch.zeros(shape, dtype=cfg.tdtype, device=device)}
+    def block_state(letter: str) -> dict:
+        st = {}
+        if letter in ("A", "D", "H"):
+            st["att"] = {"k": torch.zeros(shape, dtype=cfg.tdtype, device=device),
+                         "v": torch.zeros(shape, dtype=cfg.tdtype, device=device)}
+        if letter in ("M", "H"):
+            st.update((k, v[0]) for k, v in
+                      init_mamba2_state(cfg, batch_size, 1, device).items())
+        if letter == "R":
+            st.update((k, v[0]) for k, v in
+                      init_rwkv6_state(cfg, batch_size, 1, device).items())
+        return st
 
     segs = [
-        [{f"{j}{letter}": {"att": att()} for j, letter in enumerate(seg.body)}
+        [{f"{j}{letter}": block_state(letter) for j, letter in enumerate(seg.body)}
          for _ in range(seg.reps)]
         for seg in plan_segments(cfg)
     ]

@@ -1,7 +1,8 @@
 """The port on a CUDA device: kernels against their plain versions, the
 paper's eight apps with blocks on the GPU against the NumPy interpreter
 of the JAX package's runtime (which imports no JAX on this path), and
-the LM's prefill with the flash kernel against its torch attention.
+the LMs' prefill with the kernels (flash, SSD scan, wkv) against their
+torch twins.
 Marked ``gpu``; each test skips where no CUDA device is visible.
 
     python -m pytest -m gpu tests/test_torch_gpu.py
@@ -155,6 +156,130 @@ def test_lm_prefill_flash_matches_torch_attention(cuda):
         logits, state = prefill(c, params, {"tokens": tokens[:, :40]}, max_len=48)
         assert fa.launches["flash_attention"] == (cfg.n_layers if use_flash else 0)
         step, _ = decode_step(c, params, tokens[:, 40], state)
+        outs.append((logits, step))
+    for a, b in zip(*outs):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() < 1e-3
+
+
+# (b, s, h, p, n, with_state): tests/test_kernels.py's shapes, a ragged s
+# and p, an n that is no multiple of 8, the largest n, one token
+SSD_CASES = [
+    (2, 64, 3, 16, 8, False), (1, 100, 2, 32, 16, True), (1, 256, 1, 64, 64, True),
+    (2, 333, 5, 20, 40, True), (1, 70, 2, 64, 128, True), (1, 1, 1, 1, 1, False),
+]
+# (B, T, H, N, with_state): tests/test_kernels.py's shapes, a head size in
+# two column groups (one ragged), a small one, one token
+WKV_CASES = [
+    (2, 64, 3, 16, False), (1, 100, 2, 32, True), (1, 128, 2, 64, True),
+    (2, 333, 3, 40, True), (1, 33, 1, 8, True), (1, 1, 1, 1, False),
+]
+# tests/test_kernels.py's f32 tolerances; a bf16 y (both sides sum in f32
+# and round once) within one bf16 ulp of its largest value
+SSD_TOL, WKV_TOL, BF16_REL = 2e-3, 1e-3, 2.0 ** -7
+
+
+def _assert_recurrent_close(got, want, tol):
+    (y, fin), (y_ref, fin_ref) = got, want
+    assert y.dtype == y_ref.dtype and fin.dtype == fin_ref.dtype == torch.float32
+    tol_y = tol if y.dtype == torch.float32 else BF16_REL * y_ref.float().abs().max().item()
+    assert (y.float() - y_ref.float()).abs().max().item() <= tol_y
+    assert (fin - fin_ref).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_scan_kernel_matches_plain(cuda, dtype, case):
+    from repro_torch.kernels import mamba2_scan as ssd
+
+    b, s, h, p, n, with_state = case
+    g = torch.Generator(device=cuda).manual_seed(5)
+    f = lambda *shape: torch.randn(*shape, device=cuda, generator=g)
+    x, dt = f(b, s, h, p).to(dtype), torch.nn.functional.softplus(f(b, s, h))
+    A, B, C = -torch.exp(f(h) * 0.5), f(b, s, n).to(dtype), f(b, s, n).to(dtype)
+    s0 = f(b, h, p, n) if with_state else None
+    before = ssd.launches["ssd_scan"]
+    got = ssd.ssd_scan(x, dt, A, B, C, s0)
+    torch.cuda.synchronize()
+    assert ssd.launches["ssd_scan"] == before + 1
+    _assert_recurrent_close(got, ssd.ssd_scan_plain(x, dt, A, B, C, s0), SSD_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", WKV_CASES)
+def test_wkv6_kernel_matches_plain(cuda, dtype, case):
+    from repro_torch.kernels import rwkv6_wkv as wkv
+
+    B, T, H, N, with_state = case
+    g = torch.Generator(device=cuda).manual_seed(6)
+    f = lambda *shape: torch.randn(*shape, device=cuda, generator=g)
+    r, k, v = (f(B, T, H, N).to(dtype) for _ in range(3))
+    w, u = torch.sigmoid(f(B, T, H, N)) * 0.55 + 0.4, f(H, N)
+    s0 = f(B, H, N, N) if with_state else None
+    before = wkv.launches["wkv6"]
+    got = wkv.wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert wkv.launches["wkv6"] == before + 1
+    _assert_recurrent_close(got, wkv.wkv6_plain(r, k, v, w, u, s0), WKV_TOL)
+
+
+def test_recurrent_wrappers_raise_on_cuda_inputs_they_do_not_take(cuda):
+    from repro_torch.kernels import mamba2_scan as ssd
+    from repro_torch.kernels import rwkv6_wkv as wkv
+
+    x = torch.zeros(1, 8, 2, 4, device=cuda)
+    dt, A, B = torch.ones(1, 8, 2, device=cuda), -torch.ones(2, device=cuda), torch.zeros(
+        1, 8, 16, device=cuda)
+    before = ssd.launches["ssd_scan"]
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, B, B)
+    big = torch.zeros(1, 8, 129, device=cuda)
+    with pytest.raises(ValueError, match="state size"):
+        ssd.ssd_scan(x, dt, A, big, big)
+    with pytest.raises(TypeError):
+        ssd.ssd_scan(x, dt.bfloat16(), A, B, B)
+    with pytest.raises(ValueError, match="devices"):
+        ssd.ssd_scan(x, dt, A, B, B.cpu())
+    assert ssd.launches["ssd_scan"] == before
+    r = torch.zeros(1, 8, 2, 65, device=cuda)
+    with pytest.raises(ValueError, match="head size"):
+        wkv.wkv6(r, r, r, r, torch.zeros(2, 65, device=cuda))
+    r = torch.zeros(1, 8, 2, 16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv.wkv6(r, r, r, torch.zeros(1, 8, 2, 32, device=cuda)[..., :16],
+                 torch.zeros(2, 16, device=cuda))
+    with pytest.raises(TypeError):
+        wkv.wkv6(r.bfloat16(), r.bfloat16(), r.bfloat16(), r.bfloat16(),
+                 torch.zeros(2, 16, device=cuda))
+
+
+@pytest.mark.parametrize("arch,kw,counts", [
+    ("zamba2-2.7b", dict(n_layers=12, layer_pattern="MMMMMH" * 2),
+     {"ssd_scan": 12, "flash_attention": 2}),
+    ("rwkv6-3b", {}, {"wkv6": 4}),
+])
+def test_recurrent_lm_prefill_kernels_match_torch_twins(cuda, arch, kw, counts):
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import mamba2_scan as ssd
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    from repro_torch.models import decode_step, init_params, prefill
+
+    mods = {"ssd_scan": ssd, "flash_attention": fa, "wkv6": wkv}
+    cfg = get_reduced(arch, **kw)
+    params = init_params(cfg, seed=0, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 41), device=cuda, generator=g)
+    outs = []
+    for use_flash in (True, False):
+        c = cfg.replace(use_flash=use_flash)
+        for m in mods.values():
+            m.reset_launches()
+        logits, state = prefill(c, params, {"tokens": tokens[:, :40]}, max_len=48)
+        got = {name: m.launches[name] for name, m in mods.items() if name in counts}
+        assert got == (counts if use_flash else dict.fromkeys(counts, 0))
+        step, _ = decode_step(c, params, tokens[:, 40], state)
+        assert all(m.launches[name] == got[name] for name, m in mods.items()
+                   if name in counts)
         outs.append((logits, step))
     for a, b in zip(*outs):
         assert torch.isfinite(a).all()

@@ -26,6 +26,8 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.exec, repro_torch.core.plan_cache\n"
         "import repro_torch.configs, repro_torch.models, repro_torch.launch.steps\n"
         "import repro_torch.models.convert, repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.mamba2_scan, repro_torch.kernels.rwkv6_wkv\n"
+        "import repro_torch.models.mamba2, repro_torch.models.rwkv6\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"
