@@ -6,11 +6,15 @@
 Phases, each asserted (any failure exits non-zero):
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/*/csrc``, one
-   nvcc per source, all started together;
+   nvcc per source, all started together; print ptxas's report of each
+   kernel (registers, shared memory, spills) and the counts of ``HGMMA``
+   and ``UTMALDG`` instructions in the flash library's SASS, both
+   asserted above 0 (its bf16 kernel runs on wgmma and TMA);
 2. hold every kernel to its plain PyTorch version on the card (the
    stencil kernels, then flash attention in f32 and bf16 over head dims
    80, 120 and 128, ragged lengths, GQA, windows, a short ``sk_valid``,
-   and the LM path's own shape in f32 and bf16);
+   h2o-danube's path shape in f32 and bf16 and zamba2's in bf16; each
+   launch asserted on its dtype's kernel: bf16 on wgmma, f32 on FMA);
 3. the main path: the paper's flagship Jacobi stencil through
    ``repro_torch.runtime`` (async executor, torch backend, fusion on,
    blocks on the GPU) at 16384², 6 sweeps, 16 processes, 2048² blocks,
@@ -28,23 +32,26 @@ Phases, each asserted (any failure exits non-zero):
    d_model 3840, 32/8 heads of 120, window 4096, bf16, random weights
    from seed 0) serving two prompts of 8192 seeded tokens —
    ``make_prefill_step`` then 16 greedy ``make_serve_step`` steps — with
-   exactly one flash launch per layer in prefill and none in decode;
+   exactly one flash launch per layer in prefill, every one on the wgmma
+   kernel, and none in decode;
 8. the same prompts through the torch twins of the kernels
    (``use_flash=False``), teacher-forced on the tokens of phase 7, in
    bf16 at full depth and in f32 at full width with 2 layers;
 9. zamba2-2.7b served the same way (54 layers ``MMMMMH`` x 9, d_model
    2560, 80 SSM heads of 64, state 64, the shared MHA block 32 x 80,
    d_ff 10240, vocab 32000, tied embeddings): exactly 54 SSD scan and 9
-   flash launches in prefill, none in decode;
+   flash launches (all 9 on wgmma) in prefill, none in decode;
 10. zamba2's kernels against its torch twins, as phase 8 (f32: the 6
     layers ``MMMMMH``);
 11. rwkv6-3b served the same way (32 layers, d_model 2560, 40 heads of
     64, d_ff 8960, vocab 65536, untied): exactly 32 wkv launches in
     prefill, none in decode;
 12. rwkv6's kernel against its torch twin, as phase 8 (f32: 2 layers);
-13. the flash kernel's time at the h2o-danube path's shape beside its
-    bound, its plain version's time and ``F.scaled_dot_product_attention``
-    with a band mask as a yardstick (which the port never calls);
+13. the bf16 flash kernel's time at both of its path shapes beside its
+    bound and its plain version's time, with
+    ``F.scaled_dot_product_attention`` as a yardstick (which the port
+    never calls): with a band mask and ``enable_gqa`` at h2o-danube's
+    shape, with ``is_causal=True`` at zamba2's;
 14. the SSD scan and wkv kernels' times at their paths' shapes beside
     their bounds and their plain versions' times.
 
@@ -116,7 +123,13 @@ WKV_CASES = [
     (2, 64, 3, 16, False), (1, 100, 2, 32, True), (1, 128, 2, 64, True),
     (2, 333, 3, 40, True), (1, 33, 1, 8, True), (1, 1, 1, 1, False),
 ]
-FLASH_TOL = {"float32": 5e-4, "bfloat16": 5e-2}  # tests/test_kernels.py's
+# tests/test_kernels.py's; bf16 is held besides to fa.BF16_REL_TOL in
+# fa.bf16_rel_err against the plain version in f32 on the same bf16 values
+FLASH_TOL = {"float32": 5e-4, "bfloat16": 5e-2}
+FLASH_ROUTE = {"float32": "flash_attention_simt", "bfloat16": "flash_attention_wgmma"}
+# the flash kernel's two path shapes: (B, S, H, KV, d, window)
+FLASH_PATHS = {"danube": (LM_BATCH, LM_PROMPT, 32, 8, 120, 4096),
+               "zamba2": (LM_BATCH, LM_PROMPT, 32, 32, 80, None)}
 # kernels vs torch twins through the whole model: bf16 at full depth,
 # max |logit difference| over the max |logit|; f32 at a few layers, absolute.
 # A model with random weights may amplify bf16 rounding past 5e-2 over
@@ -146,6 +159,20 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_counts(lib: Path, opcodes: tuple) -> dict:
+    """How many instructions of each opcode the library's SASS holds
+    (``cuobjdump -sass``)."""
+    import os
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                         check=True, timeout=120).stdout
+    lines = out.splitlines()
+    return {op: sum(op in line for line in lines) for op in opcodes}
 
 
 def numpy_stencil(n: int, iters: int) -> np.ndarray:
@@ -180,6 +207,29 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def cuda_ms_alternating(fns, reps: int = 10, warmup: int = 2) -> list:
+    """Median device times of each of ``fns``, timed in turn within each
+    of ``reps`` rounds, so that a drift of the card's clocks over the run
+    falls on all of them alike."""
+    import torch
+
+    for _ in range(warmup):
+        for fn in fns:
+            fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, ts in zip(fns, times):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+    return [statistics.median(ts) for ts in times]
 
 
 def max_abs_err(a, b) -> float:
@@ -234,39 +284,63 @@ def flash_inputs(torch, gen, B, Sq, Sk, H, KV, d, dtype):
 
 
 def phase_flash_vs_plain(fa, torch, gen) -> dict:
-    """The flash kernel against its plain version: the case table, then
-    the LM path's shape, each in f32 and bf16.  Returns the largest
-    |kernel - plain| per dtype and at the path's shape."""
-    err = {"float32": 0.0, "bfloat16": 0.0}
-    for name in err:
+    """The flash kernels against their plain version: the case table in
+    f32 (FMA kernel) and bf16 (wgmma kernel), then the LM paths' shapes.
+    Asserts each launch on its dtype's kernel, and each bf16 output also
+    within ``fa.BF16_REL_TOL`` of the plain version in f32 by
+    ``fa.bf16_rel_err``.  Returns the largest |kernel - plain| per dtype
+    and at each path's shape, and the largest relative errors
+    (``bf16_rel``, ``<path>_rel``)."""
+    err = {"float32": 0.0, "bfloat16": 0.0, "bf16_rel": 0.0}
+
+    def run(name, q, k, v, **kw):
+        before = dict(fa.launches)
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        route = FLASH_ROUTE[name]
+        assert fa.launches[route] == before[route] + 1, (name, "not on", route)
+        assert fa.launches["flash_attention"] == before["flash_attention"] + 1
+        assert got.dtype == q.dtype
+        e = max_abs_err(got, want)
+        assert e < FLASH_TOL[name], (name, q.shape, kw, e)
+        if name == "float32":
+            return e, 0.0
+        del want
+        want = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+        rel = fa.bf16_rel_err(got, want)
+        assert rel <= fa.BF16_REL_TOL, (name, q.shape, kw, rel)
+        return e, rel
+
+    for name in ("float32", "bfloat16"):
         dtype = getattr(torch, name)
         for B, Sq, Sk, H, KV, d, causal, window, sk_valid in FLASH_CASES:
             q, k, v = flash_inputs(torch, gen, B, Sq, Sk, H, KV, d, dtype)
-            kw = dict(causal=causal, window=window, sk_valid=sk_valid)
-            got = fa.flash_attention(q, k, v, **kw)
-            want = fa.flash_attention_plain(q, k, v, **kw)
-            torch.cuda.synchronize()
-            e = max_abs_err(got, want)
-            assert got.dtype == dtype and e < FLASH_TOL[name], (name, B, Sq, Sk, d, e)
+            e, rel = run(name, q, k, v, causal=causal, window=window, sk_valid=sk_valid)
             err[name] = max(err[name], e)
-    # the LM path's shape, in f32 (the tight check: the kernel accumulates
-    # in f32 whatever the input) and in bf16 (the path's own dtype)
-    for name, key in (("float32", "path_f32"), ("bfloat16", "path")):
-        q, k, v = flash_inputs(torch, gen, LM_BATCH, LM_PROMPT, LM_PROMPT, 32, 8, 120,
-                               getattr(torch, name))
-        got = fa.flash_attention(q, k, v, causal=True, window=4096)
-        want = fa.flash_attention_plain(q, k, v, causal=True, window=4096)
-        torch.cuda.synchronize()
-        err[key] = max_abs_err(got, want)
-        assert err[key] < FLASH_TOL[name], (name, err)
-        del q, k, v, got, want
+            err["bf16_rel"] = max(err["bf16_rel"], rel)
+    # the LM paths' shapes: h2o-danube's in f32 (the tight check: the FMA
+    # kernel accumulates in f32) and in bf16 (the path's own dtype, on the
+    # wgmma kernel), zamba2's in bf16
+    for name, key, path in (("float32", "path_f32", "danube"), ("bfloat16", "danube", "danube"),
+                            ("bfloat16", "zamba2", "zamba2")):
+        B, S, H, KV, d, W = FLASH_PATHS[path]
+        q, k, v = flash_inputs(torch, gen, B, S, S, H, KV, d, getattr(torch, name))
+        err[key], err[f"{key}_rel"] = run(name, q, k, v, causal=True, window=W)
+        del q, k, v
+        torch.cuda.empty_cache()
     log(f"[2] flash_attention == plain version on the card ({len(FLASH_CASES)} "
         f"cases: d 64/80/120/128, ragged, cross-length, GQA, windows, sk_valid; "
-        f"f32 tol {FLASH_TOL['float32']}, bf16 tol {FLASH_TOL['bfloat16']}; "
-        f"and the LM path's shape [{LM_BATCH}, {LM_PROMPT}, 32, 120] / 8 KV "
-        f"heads, window 4096, in f32 and bf16); max |err| f32 {err['float32']:.3g}, "
-        f"bf16 {err['bfloat16']:.3g}, path f32 {err['path_f32']:.3g}, "
-        f"path bf16 {err['path']:.3g}")
+        f"f32 tol {FLASH_TOL['float32']} on the FMA kernel, bf16 tol "
+        f"{FLASH_TOL['bfloat16']} and bf16_rel_err <= {fa.BF16_REL_TOL} against the "
+        f"plain version in f32 on the wgmma kernel; and the LM paths' shapes: "
+        f"h2o-danube [{LM_BATCH}, {LM_PROMPT}, 32, 120] / 8 KV heads, window 4096, "
+        f"in f32 and bf16, zamba2 [{LM_BATCH}, {LM_PROMPT}, 32, 80] causal MHA in "
+        f"bf16); max |err| f32 {err['float32']:.3g}, bf16 {err['bfloat16']:.3g}, "
+        f"danube f32 {err['path_f32']:.3g}, danube bf16 {err['danube']:.3g}, "
+        f"zamba2 bf16 {err['zamba2']:.3g}; bf16_rel_err cases {err['bf16_rel']:.4g}, "
+        f"danube {err['danube_rel']:.4g}, zamba2 {err['zamba2_rel']:.4g} "
+        f"(tol {fa.BF16_REL_TOL})")
     return err
 
 
@@ -692,40 +766,58 @@ def valid_pairs(S: int, window: int, B: int, H: int) -> int:
     return per_head * B * H
 
 
-def phase_flash_times(fa, torch, gen, launches: int, err: dict) -> dict:
+def phase_flash_times(fa, torch, gen, path: str, launches: int, err: dict) -> dict:
+    """The bf16 (wgmma) flash kernel at one LM path's shape beside its
+    bound, its plain version and one SDPA call: with a band mask and
+    ``enable_gqa`` where the path has a window (h2o-danube), with
+    ``is_causal=True`` where it has none (zamba2), which lets PyTorch
+    take its flash backend."""
     import torch.nn.functional as F
 
-    B, S, H, KV, d, W = LM_BATCH, LM_PROMPT, 32, 8, 120, 4096
+    B, S, H, KV, d, W = FLASH_PATHS[path]
     q, k, v = flash_inputs(torch, gen, B, S, S, H, KV, d, torch.bfloat16)
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True, window=W), reps=10)
     plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True, window=W),
                        reps=3, warmup=1)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    i = torch.arange(S, device=DEVICE)
-    band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < W)
+    if W is not None:
+        i = torch.arange(S, device=DEVICE)
+        band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < W)
+        lib_name = "band mask, enable_gqa"
 
-    def library():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, enable_gqa=True)
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                                  enable_gqa=True)
+    else:
+        assert H == KV
+        lib_name = "is_causal=True"
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
 
     lib_err = max_abs_err(library().transpose(1, 2), fa.flash_attention(
         q, k, v, causal=True, window=W))
-    library_ms = cuda_ms(library, reps=5, warmup=1)
-    pairs = valid_pairs(S, W, B, H)
+    # the kernel and the library call in alternating rounds
+    ms, library_ms = cuda_ms_alternating(
+        [lambda: fa.flash_attention(q, k, v, causal=True, window=W), library], reps=10)
+    pairs = valid_pairs(S, W or S, B, H)
     flops = 4 * d * pairs  # q.k and p.v: 2 d multiply-adds per kept pair
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())  # bf16 q, k, v, out
     bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3
-    log(f"[13] flash_attention [{B}, {S}, {H}, {d}] / {KV} KV heads, window {W}, bf16 "
-        f"(the h2o-danube path's shape; {launches} launches over the LM prefills): "
-        f"kernel {ms:.3f} ms | bound {bound_ms:.4f} ms ({pairs / 1e9:.3f} G kept pairs "
-        f"x {4 * d} flop at 989 TFLOP/s; bytes {nbytes / 1e6:.1f} MB at 3.35 TB/s = "
+    log(f"[13] flash_attention [{B}, {S}, {H}, {d}] / {KV} KV heads, "
+        f"{'window ' + str(W) if W else 'causal, no window'}, bf16 (the {path} path's "
+        f"shape; {launches} launches over its prefill): kernel {ms:.3f} ms | bound "
+        f"{bound_ms:.4f} ms ({pairs / 1e9:.3f} G kept pairs x {4 * d} flop at 989 "
+        f"TFLOP/s; bytes {nbytes / 1e6:.1f} MB at 3.35 TB/s = "
         f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms) | plain {plain_ms:.3f} ms | "
-        f"yardstick F.scaled_dot_product_attention, band mask, enable_gqa (not "
-        f"used by the port) {library_ms:.3f} ms, |diff| {lib_err:.3g} | "
-        f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s on kept pairs")
+        f"yardstick F.scaled_dot_product_attention, {lib_name} (not used by the "
+        f"port; timed in rounds alternating with the kernel) {library_ms:.3f} ms, "
+        f"|diff| {lib_err:.3g} | "
+        f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s on kept pairs, "
+        f"{100 * bound_ms / ms:.1f}% of the bound")
     return dict(
-        name="flash_attention", route="cuda", source=FLASH_CU,
+        name=f"flash_attention_wgmma[{path}]", route="cuda", source=FLASH_CU,
         replaces="src/repro/kernels/flash_attention/kernel.py:100",
-        launches=launches, max_abs_err=err["path"], ms=ms, plain_ms=plain_ms,
+        launches=launches, max_abs_err=err[path], ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by="operations" if flops / BF16_FLOP_PER_S
         >= nbytes / HBM_BYTES_PER_S else "bytes",
         library_ms=library_ms,
@@ -819,8 +911,12 @@ def main() -> int:
         f"{', '.join(f'{b.seconds:.2f} s' for b in built)}, in parallel)")
     for b in built:
         for line in b.log.splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if any(w in line for w in ("Compiling entry", "registers", "spill")):
                 log(f"    {line.strip()}")
+    sass = sass_counts(built[libs.index(fa)].path, ("HGMMA", "UTMALDG"))
+    log(f"[1] flash library SASS: {sass['HGMMA']} HGMMA (wgmma) and {sass['UTMALDG']} "
+        f"UTMALDG (TMA load) instructions")
+    assert sass["HGMMA"] > 0 and sass["UTMALDG"] > 0, sass
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     err = phase_kernels_vs_plain(ks, torch, gen)
     flash_err = phase_flash_vs_plain(fa, torch, gen)
@@ -832,22 +928,27 @@ def main() -> int:
     records = phase_times(ks, torch, gen, main_info, err)
     torch.cuda.empty_cache()
     launches = {}
+    # every bf16 flash launch of a prefill goes to the wgmma kernel
     for tags, (arch, expect), kernels, f32_kw in (
-        (("7", "8"), DANUBE, {"flash_attention": (fa, 24)}, dict(n_layers=2)),
-        (("9", "10"), ZAMBA, {"ssd_scan": (ssd, 54), "flash_attention": (fa, 9)},
+        (("7", "8"), DANUBE, {"flash_attention": (fa, 24), "flash_attention_wgmma": (fa, 24)},
+         dict(n_layers=2)),
+        (("9", "10"), ZAMBA, {"ssd_scan": (ssd, 54), "flash_attention": (fa, 9),
+                              "flash_attention_wgmma": (fa, 9)},
          dict(n_layers=6, layer_pattern="MMMMMH")),
         (("11", "12"), RWKV, {"wkv6": (wkv, 32)}, dict(n_layers=2)),
     ):
         lm = phase_lm(torch, tags[0], arch, expect, kernels)
         phase_lm_agreement(torch, tags[1], lm, f32_kw)
-        for name, n in lm["launches"].items():
-            launches[name] = launches.get(name, 0) + n
+        launches[arch] = lm["launches"]
         del lm
         torch.cuda.empty_cache()
-    records.append(phase_flash_times(fa, torch, gen, launches["flash_attention"],
-                                     flash_err))
-    torch.cuda.empty_cache()
-    records += phase_recurrent_times(ssd, wkv, torch, gen, launches, rec_err)
+    for path, arch in (("danube", DANUBE[0]), ("zamba2", ZAMBA[0])):
+        records.append(phase_flash_times(fa, torch, gen, path,
+                                         launches[arch]["flash_attention_wgmma"], flash_err))
+        torch.cuda.empty_cache()
+    records += phase_recurrent_times(ssd, wkv, torch, gen, {
+        "ssd_scan": launches[ZAMBA[0]]["ssd_scan"], "wkv6": launches[RWKV[0]]["wkv6"]},
+        rec_err)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": records}))
     log(card)

@@ -1,19 +1,37 @@
-"""Wrapper of the hand-written flash attention kernel, with its plain
+"""Wrapper of the hand-written flash attention kernels, with their plain
 version.
 
-``flash_attention`` checks its inputs, then either launches the CUDA
-kernel (``csrc/flash_attention.cu``) on the current stream — for tensors
-on a CUDA device — or runs ``flash_attention_plain`` — for tensors on the
-CPU, where no kernel exists.  There is no other route: a CUDA tensor
-launches the kernel or raises.
+``flash_attention`` checks its inputs, then either launches a CUDA
+kernel of ``csrc/flash_attention.cu`` on the current stream — for
+tensors on a CUDA device — or runs ``flash_attention_plain`` — for
+tensors on the CPU, where no kernel exists.  There is no other route: a
+CUDA tensor launches its dtype's kernel or raises.  The dtype picks the
+kernel:
+
+- **bfloat16: the wgmma kernel** (``flash_attention_wgmma_kernel``): TMA
+  loads into a ring of shared-memory stages, both products on the
+  tensor cores, 128-row query tiles and 128-key tiles (``BLOCK_Q``,
+  ``BLOCK_K``).  It takes a head dim that is a multiple of 8 and at most
+  128, 16-byte-aligned q, k and v, and a positive scale (``_check_tma``
+  and the scale check raise ``ValueError`` otherwise).  Counted in
+  ``launches["flash_attention_wgmma"]``.
+- **float32: the FMA kernel** (``flash_attention_simt_kernel``): FP32
+  FMA only, so it holds the f32 tolerance (5e-4) that TF32 tensor cores
+  would not; 64-row and 64-key tiles, any head dim up to 128.  Counted in ``launches["flash_attention_simt"]``.
+
+``launches["flash_attention"]`` counts every launch of either.
+
+The wgmma kernel rounds P to bf16 before P·V, where the plain version
+keeps it in f32.  ``bf16_rel_err`` is the measure the bf16 route is held
+to on the card, against the plain version in f32 on the same
+bf16-valued inputs, with ``BF16_REL_TOL`` as its bound.
 
 The layout is the JAX wrapper's (``repro.kernels.flash_attention``):
 q ``[B, Sq, H, d]``, k and v ``[B, Sk, KV, d]``, out ``[B, Sq, H, d]``.
 Unlike that wrapper nothing is padded or repeated: the kernel reads KV
 head ``h // (H // KV)`` in place and keeps ``d`` at its true value.
 
-``launches`` counts kernel launches (plain-version calls are not
-launches).
+Plain-version calls are not launches.
 """
 from __future__ import annotations
 
@@ -29,6 +47,8 @@ from repro_torch.kernels.build import BuiltLibrary, build_library
 __all__ = [
     "flash_attention",
     "flash_attention_plain",
+    "BF16_REL_TOL",
+    "bf16_rel_err",
     "launches",
     "reset_launches",
     "load",
@@ -36,12 +56,19 @@ __all__ = [
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 NEG_INF = -1e30
-BLOCK_Q = BLOCK_K = 64  # the kernel's query and key tiles (kBlockQ, kBlockK)
+BLOCK_Q = BLOCK_K = 128  # the wgmma kernel's query and key tiles (wg::kBlockQ, kBlockK)
 MAX_HEAD_DIM = 128  # kMaxD
+# bf16_rel_err's bound: 2^-6, four times the largest relative rounding
+# error of one bf16 value.  Rounding P and the output to bf16 stays near
+# half of it; a kernel that drops or repeats a key tile, or moves the
+# window's edge or the diagonal by one key, lands many times above it
+# (tests/test_torch_flash_attention.py)
+BF16_REL_TOL = 2.0 ** -6
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_ROUTE = {torch.float32: "flash_attention_simt", torch.bfloat16: "flash_attention_wgmma"}
 
-launches = {"flash_attention": 0}
+launches = {"flash_attention": 0, "flash_attention_wgmma": 0, "flash_attention_simt": 0}
 _count_lock = threading.Lock()
 _bind_lock = threading.Lock()
 _bound: set = set()
@@ -49,12 +76,14 @@ _bound: set = set()
 
 def reset_launches() -> None:
     with _count_lock:
-        launches["flash_attention"] = 0
+        for name in launches:
+            launches[name] = 0
 
 
-def _count() -> None:
+def _count(route: str) -> None:
     with _count_lock:
         launches["flash_attention"] += 1
+        launches[route] += 1
 
 
 def load() -> BuiltLibrary:
@@ -68,11 +97,14 @@ def load() -> BuiltLibrary:
                 fn.argtypes = [p, p, p, p] + [i64] * 7 + [i32, i32, i64,
                                                           ctypes.c_float, p]
                 fn.restype = ctypes.c_int
-            built.lib.flash_attention_max_head_dim.argtypes = []
-            built.lib.flash_attention_max_head_dim.restype = ctypes.c_int
-            if built.lib.flash_attention_max_head_dim() != MAX_HEAD_DIM:
-                raise RuntimeError("flash_attention.cu and ops.py disagree on "
-                                   "the largest head dim")
+            config = built.lib.flash_attention_config
+            config.argtypes = [ctypes.c_int]
+            config.restype = ctypes.c_int
+            ours = (MAX_HEAD_DIM, BLOCK_Q, BLOCK_K)
+            theirs = tuple(config(i) for i in range(len(ours)))
+            if theirs != ours:
+                raise RuntimeError(f"flash_attention.cu (largest d, tiles {theirs}) "
+                                   f"and ops.py ({ours}) disagree")
             _bound.add(built.path)
     return built
 
@@ -105,6 +137,36 @@ def _check(q, k, v, sk_valid) -> int:
     return sk_valid
 
 
+def _check_tma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """What the wgmma kernel's TMA loads need beyond ``_check``: rows of
+    16-byte multiples (a head dim that is a multiple of 8) and 16-byte-
+    aligned base addresses.  Raises ``ValueError``; nothing is copied or
+    padded to make an input fit."""
+    d = q.shape[3]
+    if d % 8:
+        raise ValueError(f"flash_attention: bf16 head dim {d} is not a multiple of 8 "
+                         f"(the TMA loads need 16-byte rows)")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"flash_attention: bf16 {name} at address "
+                             f"{x.data_ptr():#x} is not 16-byte aligned (TMA)")
+
+
+_LAUNCH_ERRORS = {
+    -1: "an argument the kernel does not take",
+    -2: "the wgmma kernel was not built at the 168 registers a thread that "
+        "its setmaxnreg split assumes (see ptxas's report)",
+}
+
+
+def _launch_error(rc: int) -> str:
+    if rc > 0:
+        return f"cudaError {rc}"
+    if rc <= -1000:
+        return f"cuTensorMapEncodeTiled returned CUresult {-1000 - rc}"
+    return _LAUNCH_ERRORS.get(rc, f"code {rc}")
+
+
 # ---------------------------------------------------------------------------
 # plain version
 # ---------------------------------------------------------------------------
@@ -130,12 +192,14 @@ def flash_attention_plain(
     window: Optional[int] = None,
     scale: Optional[float] = None,
     sk_valid: Optional[int] = None,
-    block_q: int = BLOCK_Q,
-    block_k: int = BLOCK_K,
+    block_q: int = 64,
+    block_k: int = 64,
 ) -> torch.Tensor:
-    """The kernel's function in torch ops: per query tile, an online
-    softmax over the key tiles it can see, in f32, in the kernel's order.
-    Live memory is O(block_q · block_k) scores per head, never Sq × Sk."""
+    """The kernels' function in torch ops: per query tile, an online
+    softmax over the key tiles it can see, in f32.  The default tiles are
+    the FMA kernel's and the Pallas kernel's; ``BLOCK_Q`` and ``BLOCK_K``
+    give the wgmma kernel's order.  Live memory is O(block_q · block_k)
+    scores per head, never Sq × Sk."""
     sk_valid = _check(q, k, v, sk_valid)
     B, Sq, H, d = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -175,6 +239,19 @@ def flash_attention_plain(
     return out
 
 
+def bf16_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest ``|got - want| / (|want| + r)`` over the outputs, r the
+    root mean square of ``want`` over the output's row of d values (0 / 0
+    counts 0).  An attention output averages many values: most of its
+    entries are far smaller than its rounding error's scale, so the bf16
+    route is held to this, not to an absolute bound."""
+    got, want = got.double(), want.double()
+    err = (got - want).abs()
+    r = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    ratio = torch.where(err == 0, 0.0, err / (want.abs() + r))
+    return float(ratio.max()) if ratio.numel() else 0.0
+
+
 # ---------------------------------------------------------------------------
 # kernel wrapper
 # ---------------------------------------------------------------------------
@@ -194,9 +271,10 @@ def flash_attention(
 
     q ``[B, Sq, H, d]``, k and v ``[B, Sk, KV, d]`` (contiguous, one
     dtype: float32 or bfloat16, ``H % KV == 0``, ``d <= 128`` on the
-    card).  Query row i sits at position i whatever Sk is; key j is
-    valid when ``j < sk_valid`` (default Sk), ``j <= i`` if ``causal``
-    and ``i - j < window`` if ``window`` is set.  Returns
+    card; in bfloat16 on the card also ``d % 8 == 0``, 16-byte-aligned
+    tensors and ``scale > 0``).  Query row i sits at position i whatever
+    Sk is; key j is valid when ``j < sk_valid`` (default Sk), ``j <= i``
+    if ``causal`` and ``i - j < window`` if ``window`` is set.  Returns
     ``[B, Sq, H, d]`` in q's dtype."""
     sk_valid = _check(q, k, v, sk_valid)
     if q.device.type == "cpu":
@@ -211,9 +289,17 @@ def flash_attention(
     if B > 65535 or H > 65535:
         raise ValueError(f"flash_attention: B {B} or H {H} above the grid's 65535")
     scale = d ** -0.5 if scale is None else scale
+    if q.dtype == torch.bfloat16:
+        _check_tma(q, k, v)
+        if not scale > 0:
+            raise ValueError(f"flash_attention: bf16 scale {scale} is not positive")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if Sk == 0 and q.dtype == torch.bfloat16:
+        # no keys (a tensor map cannot have an empty dim): every row is
+        # 0 / 1e-30 = 0, as the plain version gives
+        return out.zero_()
     fn = getattr(load().lib, f"flash_attention_{_SUFFIX[q.dtype]}")
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -221,6 +307,6 @@ def flash_attention(
                 int(window is not None), 0 if window is None else int(window),
                 float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention: kernel launch failed (cudaError {rc})")
-    _count()
+        raise RuntimeError(f"flash_attention: kernel launch failed: {_launch_error(rc)}")
+    _count(_ROUTE[q.dtype])
     return out

@@ -17,12 +17,21 @@ import torch
 from repro.configs import get_reduced as jax_reduced
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.flash_attention import flash_attention_ref
+from repro.kernels.flash_attention.kernel import flash_attention_kernel as pallas_kernel
 from repro.models import attention as jax_attention
 from repro_torch.configs import get_reduced
 from repro_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_plain,
     launches,
+)
+from repro_torch.kernels.flash_attention.ops import (
+    BF16_REL_TOL,
+    BLOCK_K,
+    BLOCK_Q,
+    NEG_INF,
+    _check_tma,
+    bf16_rel_err,
 )
 from repro_torch.models import attention as port_attention
 from repro_torch.models.convert import tensor_from_numpy
@@ -105,6 +114,91 @@ def test_plain_block_sizes_do_not_change_the_result():
     assert (a - b).abs().max().item() < 1e-5
 
 
+# (name, B, Sq, Sk, H, KV, d, causal, window, sk_valid): the wgmma kernel's
+# tiles (128 rows, 128 keys) with a causal window that starts inside a
+# key tile, and a ragged sk_valid in the third key tile under GQA
+TILE_CASES = [
+    ("causal_window", 1, 256, 256, 2, 2, 64, True, 100, None),
+    ("ragged_sk_valid", 2, 128, 384, 4, 2, 64, False, None, 300),
+]
+
+
+@pytest.mark.parametrize("case", TILE_CASES, ids=[c[0] for c in TILE_CASES])
+def test_plain_at_the_wgmma_tiles_matches_pallas_kernel_and_ref(case):
+    """``flash_attention_plain`` at ``block_q=BLOCK_Q, block_k=BLOCK_K``
+    (the tile order of the bf16 wgmma kernel, which the card holds to
+    this function) against the Pallas kernel at the same 128 x 128 tiles
+    in interpret mode, called with its own ``sk_valid``, and ``ref.py``
+    over the first ``sk_valid`` keys."""
+    _, B, Sq, Sk, H, KV, d, causal, window, sk_valid = case
+    assert (BLOCK_Q, BLOCK_K) == (128, 128)
+    (jq, jk, jv), (tq, tk, tv) = _inputs(6, [(B, Sq, H, d), (B, Sk, KV, d), (B, Sk, KV, d)])
+    got = flash_attention_plain(tq, tk, tv, causal=causal, window=window,
+                                sk_valid=sk_valid, block_q=BLOCK_Q, block_k=BLOCK_K)
+    G = H // KV
+    pallas = pallas_kernel(
+        jq.transpose(0, 2, 1, 3), jnp.repeat(jk, G, axis=2).transpose(0, 2, 1, 3),
+        jnp.repeat(jv, G, axis=2).transpose(0, 2, 1, 3), causal=causal, window=window,
+        block_q=BLOCK_Q, block_k=BLOCK_K, sk_valid=sk_valid, interpret=True,
+    ).transpose(0, 2, 1, 3)
+    n = Sk if sk_valid is None else sk_valid
+    ref = flash_attention_ref(jq, jk[:, :n], jv[:, :n], causal=causal, window=window)
+    assert _err(got, pallas) < 5e-4
+    assert _err(got, ref) < 5e-4
+
+
+def _emulated_bf16_kernel(q, k, v, *, window, fault):
+    """Dense attention that rounds as the wgmma kernel does (P to bf16
+    before P·V, the sum l from the f32 P, the output to bf16), with one
+    of the faults a bound on the bf16 route has to catch."""
+    S = q.shape[1]
+    i = torch.arange(S)[:, None]
+    j = torch.arange(S)[None, :]
+    diag = {"diagonal_minus_1": -1, "diagonal_plus_1": 1}.get(fault, 0)
+    w = window + {"window_edge_minus_1": -1, "window_edge_plus_1": 1}.get(fault, 0)
+    ok = (i + diag >= j) & (i - j < w)
+    k, v = k.clone(), v.clone()
+    if fault == "drop_key_tile":
+        ok &= ~((j >= 256) & (j < 384))
+    if fault == "repeat_key_tile":  # a ring stage read one tile late
+        k[:, 256:384], v[:, 256:384] = k[:, 128:256], v[:, 128:256]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * q.shape[3] ** -0.5
+    s = torch.where(ok, s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * ok
+    o = torch.einsum("bhqk,bkhd->bqhd", p.bfloat16().float(), v)
+    o = o / torch.clamp_min(p.sum(dim=-1), 1e-30).transpose(1, 2)[..., None]
+    return o.bfloat16()
+
+
+BF16_FAULTS = ["drop_key_tile", "repeat_key_tile", "window_edge_minus_1",
+               "window_edge_plus_1", "diagonal_minus_1", "diagonal_plus_1"]
+
+
+@pytest.mark.parametrize("fault", [None] + BF16_FAULTS)
+def test_bf16_measure_passes_rounding_and_catches_faults(fault):
+    """``bf16_rel_err`` against the plain version in f32, on bf16-valued
+    inputs at a long window (h2o-danube's head dim, 512 keys a row): the
+    kernel's bf16 rounding stays under half of ``BF16_REL_TOL``, and each
+    fault a pipeline or mask slip would make lands at least ten times
+    above it.  An absolute bound of 5e-2 passes most of these faults."""
+    _, (tq, tk, tv) = _inputs(7, [(1, 1024, 2, 120)] * 3, "bfloat16")
+    q, k, v = tq.float(), tk.float(), tv.float()
+    want = flash_attention_plain(q, k, v, window=512)
+    got = _emulated_bf16_kernel(q, k, v, window=512, fault=fault)
+    err = bf16_rel_err(got, want)
+    if fault is None:
+        assert err < BF16_REL_TOL / 2
+    else:
+        assert err > 10 * BF16_REL_TOL
+
+
+def test_bf16_measure_of_rows_without_keys():
+    """Rows that see no key are 0 in both: they count 0, not 0 / 0."""
+    zero = torch.zeros(1, 3, 2, 8)
+    assert bf16_rel_err(zero, zero) == 0.0
+    assert bf16_rel_err(zero + 1e-3, zero) == float("inf")
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     x = torch.zeros(1, 8, 4, 16)
     with pytest.raises(TypeError):
@@ -115,6 +209,24 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         flash_attention(x, x, x, sk_valid=9)
     with pytest.raises(ValueError):
         flash_attention(x[0], x, x)
+    # The bf16 (wgmma) route's own checks, which the wrapper applies only
+    # to CUDA tensors, after the device dispatch: a CPU tensor runs the
+    # plain version, which takes any head dim and address.  So they are
+    # shown here on ``_check_tma``, the function the wrapper calls, and on
+    # the card by tests/test_torch_gpu.py through the wrapper itself.
+    odd = torch.zeros(1, 8, 2, 20, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        _check_tma(odd, odd, odd)
+    before = dict(launches)
+    assert flash_attention(odd, odd, odd).shape == odd.shape  # the plain version
+    assert launches == before
+    shifted = torch.zeros(8 * 2 * 16 + 1, dtype=torch.bfloat16)[1:].view(1, 8, 2, 16)
+    ok = torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 and ok.data_ptr() % 16 == 0
+    _check_tma(ok, ok, ok)
+    for args in ((shifted, ok, ok), (ok, shifted, ok), (ok, ok, shifted)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            _check_tma(*args)
 
 
 # (q shape, kv shape, v head dim, kwargs): every argument of chunked_attention

@@ -97,7 +97,9 @@ def test_apps_on_gpu_match_numpy_interpreter(cuda, app, fusion):
 
 
 # (B, Sq, Sk, H, KV, d, causal, window, sk_valid): tests/test_kernels.py's
-# shapes, plus the LM path's head dim, GQA, window and a short sk_valid
+# shapes, plus the LM path's head dim, GQA, window and a short sk_valid;
+# then cases that put the diagonal, the window's lower edge and sk_valid
+# at other offsets inside the wgmma kernel's 128-row and 128-key tiles
 FLASH_CASES = [
     (1, 128, 128, 2, 2, 64, True, None, None),
     (2, 130, 130, 4, 2, 64, True, None, None),
@@ -108,8 +110,19 @@ FLASH_CASES = [
     (2, 333, 333, 8, 2, 120, True, 100, None),
     (2, 77, 200, 8, 2, 120, True, 50, 77),
     (1, 1, 5, 4, 1, 32, False, None, 3),
+    (1, 300, 300, 2, 1, 16, True, None, None),      # d 16, Sq ragged against 128
+    (2, 37, 37, 4, 2, 128, True, None, None),       # Sq < 64: one warpgroup's rows only
+    (1, 50, 50, 2, 2, 32, False, None, None),       # Sq < 64, not causal
+    (1, 200, 500, 4, 2, 64, False, None, 333),      # Sk > Sq, sk_valid inside a key tile
+    (2, 100, 300, 4, 4, 80, True, None, 250),       # Sk > Sq, causal, sk_valid
+    (1, 390, 390, 4, 1, 128, True, 1, None),        # window 1: the diagonal alone
+    (2, 333, 333, 4, 2, 120, True, 37, None),       # window 37
+    (1, 517, 517, 2, 2, 80, True, 129, None),       # window 129: one tile and one key
+    (1, 300, 640, 2, 1, 64, False, 129, 600),       # window, not causal, with sk_valid
+    (1, 260, 130, 2, 2, 120, True, None, None),     # Sq > Sk
 ]
 FLASH_TOL = {torch.float32: 5e-4, torch.bfloat16: 5e-2}
+FLASH_ROUTE = {torch.float32: "flash_attention_simt", torch.bfloat16: "flash_attention_wgmma"}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -121,13 +134,18 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, case):
     k = torch.randn(B, Sk, KV, d, device=cuda, generator=g).to(dtype)
     v = torch.randn(B, Sk, KV, d, device=cuda, generator=g).to(dtype)
     kw = dict(causal=causal, window=window, sk_valid=sk_valid)
-    before = fa.launches["flash_attention"]
+    before = dict(fa.launches)
     got = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert fa.launches["flash_attention"] == before + 1
+    route = FLASH_ROUTE[dtype]
+    assert fa.launches["flash_attention"] == before["flash_attention"] + 1
+    assert fa.launches[route] == before[route] + 1  # bf16 only on wgmma, f32 only on FMA
     want = fa.flash_attention_plain(q, k, v, **kw)
     assert got.dtype == dtype and got.shape == q.shape
     assert (got.float() - want.float()).abs().max().item() < FLASH_TOL[dtype]
+    if dtype == torch.bfloat16:  # and relative to the plain version in f32
+        want = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+        assert fa.bf16_rel_err(got, want) <= fa.BF16_REL_TOL
 
 
 def test_flash_attention_raises_on_cuda_inputs_it_does_not_take(cuda):
@@ -139,6 +157,46 @@ def test_flash_attention_raises_on_cuda_inputs_it_does_not_take(cuda):
         fa.flash_attention(big, big, big)
     with pytest.raises(TypeError):
         fa.flash_attention(q, q.bfloat16(), q)
+
+
+def test_flash_attention_bf16_raises_on_what_tma_does_not_take(cuda):
+    """The wgmma kernel's TMA loads need d % 8 == 0 and 16-byte-aligned
+    tensors: a bf16 input that fails either raises, with no launch and no
+    fallback to the FMA kernel, while f32 takes the same shapes."""
+    before = dict(fa.launches)
+    odd = torch.zeros(1, 8, 2, 20, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.flash_attention(odd, odd, odd)
+    n = 8 * 2 * 16
+    shifted = torch.empty(n + 1, device=cuda, dtype=torch.bfloat16)[1:].view(1, 8, 2, 16)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    ok = torch.zeros(1, 8, 2, 16, device=cuda, dtype=torch.bfloat16)
+    for args in ((shifted, ok, ok), (ok, shifted, ok), (ok, ok, shifted)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa.flash_attention(*args)
+    with pytest.raises(ValueError, match="scale"):
+        fa.flash_attention(ok, ok, ok, scale=-1.0)
+    assert fa.launches == before
+    got = fa.flash_attention(odd.float(), odd.float(), odd.float())
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention_simt"] == before["flash_attention_simt"] + 1
+    assert fa.launches["flash_attention_wgmma"] == before["flash_attention_wgmma"]
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+def test_flash_attention_without_keys_is_zero(cuda):
+    """Sk = 0: every row is 0, as the plain version gives.  The FMA kernel
+    launches on no key tile; the wgmma kernel is not launched (a tensor
+    map cannot have an empty dim)."""
+    for dtype, launched in ((torch.float32, 1), (torch.bfloat16, 0)):
+        q = torch.randn(1, 3, 2, 16, device=cuda).to(dtype)
+        k = torch.zeros(1, 0, 2, 16, device=cuda, dtype=dtype)
+        before = fa.launches["flash_attention"]
+        got = fa.flash_attention(q, k, k)
+        torch.cuda.synchronize()
+        assert fa.launches["flash_attention"] == before + launched
+        assert torch.equal(got, fa.flash_attention_plain(q, k, k))
+        assert torch.equal(got, torch.zeros_like(q))
 
 
 def test_lm_prefill_flash_matches_torch_attention(cuda):
@@ -155,6 +213,7 @@ def test_lm_prefill_flash_matches_torch_attention(cuda):
         fa.reset_launches()
         logits, state = prefill(c, params, {"tokens": tokens[:, :40]}, max_len=48)
         assert fa.launches["flash_attention"] == (cfg.n_layers if use_flash else 0)
+        assert fa.launches[FLASH_ROUTE[cfg.tdtype]] == fa.launches["flash_attention"]
         step, _ = decode_step(c, params, tokens[:, 40], state)
         outs.append((logits, step))
     for a, b in zip(*outs):
