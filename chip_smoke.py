@@ -7,9 +7,11 @@ Phases, each asserted (any failure exits non-zero):
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/*/csrc``, one
    nvcc per source, all started together; print ptxas's report of each
-   kernel (registers, shared memory, spills) and the counts of ``HGMMA``
-   and ``UTMALDG`` instructions in the flash library's SASS, both
-   asserted above 0 (its bf16 kernel runs on wgmma and TMA);
+   kernel (registers, shared memory, spills), the counts of ``HGMMA``
+   and ``UTMALDG`` instructions in the flash library's SASS (its bf16
+   kernel runs on wgmma and TMA) and of ``HMMA`` and ``LDGSTS`` in the
+   SSD scan library's (its bf16 kernel runs on mma.sync and cp.async),
+   each asserted above 0;
 2. hold every kernel to its plain PyTorch version on the card (the
    stencil kernels, then flash attention in f32 and bf16 over head dims
    80, 120 and 128, ragged lengths, GQA, windows, a short ``sk_valid``,
@@ -27,7 +29,8 @@ Phases, each asserted (any failure exits non-zero):
    workers, 10 ms injected latency) on the async and blocking channels;
 6. each stencil kernel's time at the main path's shapes beside its
    bound, its plain version's time and a PyTorch yardstick where one
-   exists;
+   exists: ``stencil5_block`` at the largest fragment and at the largest
+   1-wide halo sliver, each with its kind's launch count;
 7. the LM path: h2o-danube-3-4b at full width and depth (24 layers,
    d_model 3840, 32/8 heads of 120, window 4096, bf16, random weights
    from seed 0) serving two prompts of 8192 seeded tokens —
@@ -39,8 +42,9 @@ Phases, each asserted (any failure exits non-zero):
    bf16 at full depth and in f32 at full width with 2 layers;
 9. zamba2-2.7b served the same way (54 layers ``MMMMMH`` x 9, d_model
    2560, 80 SSM heads of 64, state 64, the shared MHA block 32 x 80,
-   d_ff 10240, vocab 32000, tied embeddings): exactly 54 SSD scan and 9
-   flash launches (all 9 on wgmma) in prefill, none in decode;
+   d_ff 10240, vocab 32000, tied embeddings): exactly 54 SSD scan
+   launches (all 54 on the tensor-core kernel) and 9 flash launches (all
+   9 on wgmma) in prefill, none in decode;
 10. zamba2's kernels against its torch twins, as phase 8 (f32: the 6
     layers ``MMMMMH``);
 11. rwkv6-3b served the same way (32 layers, d_model 2560, 40 heads of
@@ -52,12 +56,14 @@ Phases, each asserted (any failure exits non-zero):
     ``F.scaled_dot_product_attention`` as a yardstick (which the port
     never calls): with a band mask and ``enable_gqa`` at h2o-danube's
     shape, with ``is_causal=True`` at zamba2's;
-14. the SSD scan and wkv kernels' times at their paths' shapes beside
+14. the SSD scan (bf16: the tensor-core kernel, with ptxas's registers
+    and spills) and wkv kernels' times at their paths' shapes beside
     their bounds and their plain versions' times.
 
 Phase 2 also holds the SSD scan and wkv kernels to their plain versions
 (f32 and the paths' bf16/f32 mix; ragged lengths, initial states,
-several heads, and each path's own shape).
+several heads, and each path's own shape), each SSD launch asserted on
+its dtype's kernel: bf16 on the tensor-core kernel, f32 on FMA.
 
 The second-to-last line of output is the JSON ``kernels`` record, the
 line before it the card's name and power limit, and the last line
@@ -110,6 +116,7 @@ WKV_PATH = (LM_BATCH, LM_PROMPT, 40, 64)
 # its plain version both sum in f32 and round once) may differ by one
 # bf16 ulp of the largest output, 2^-7 of it
 SSD_TOL, WKV_TOL, BF16_REL = 2e-3, 1e-3, 2.0 ** -7
+SSD_ROUTE = {"float32": "ssd_scan_simt", "bfloat16": "ssd_scan_tc"}
 # (b, s, h, p, n, with_state): tests/test_kernels.py's shapes, then a
 # ragged s and p, an n that is no multiple of 8, the largest n and one token
 SSD_CASES = [
@@ -159,6 +166,26 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(log: str, kernel: str) -> list:
+    """(entry, registers, spill stores, spill loads) of every entry
+    function whose mangled name contains ``kernel``, from nvcc's
+    ``-Xptxas=-v`` output."""
+    import re
+
+    out, entry, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1) if kernel in m.group(1) else None
+        elif entry and "spill stores" in line:
+            spills = tuple(int(v) for v in re.findall(r"(\d+) bytes spill", line))
+        elif entry and "Used" in line and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            out.append((entry, regs, *spills))
+            entry = None
+    return out
 
 
 def sass_counts(lib: Path, opcodes: tuple) -> dict:
@@ -387,12 +414,16 @@ def phase_recurrent_vs_plain(ssd, wkv, torch, gen) -> dict:
     err = {}
     for name in ("float32", "bfloat16"):
         dtype = getattr(torch, name)
+        route = SSD_ROUTE[name]
         e = 0.0
         for b, s, h, p, n, with_state in SSD_CASES + [(*SSD_PATH, True)]:
             ins = ssd_inputs(torch, gen, b, s, h, p, n, dtype, with_state)
+            before = dict(ssd.launches)
             got = ssd.ssd_scan(*ins)
             want = ssd.ssd_scan_plain(*ins)
             torch.cuda.synchronize()
+            assert ssd.launches[route] == before[route] + 1, (name, "not on", route)
+            assert ssd.launches["ssd_scan"] == before["ssd_scan"] + 1
             e = max(e, recurrent_err(("ssd_scan", b, s, h, p, n), got, want, SSD_TOL))
             del ins, got, want
         err[("ssd_scan", name)] = e
@@ -409,7 +440,8 @@ def phase_recurrent_vs_plain(ssd, wkv, torch, gen) -> dict:
         f"{len(WKV_CASES)} cases: ragged lengths, initial states, several heads, "
         f"n 1..128, N 1..64; then the paths' shapes, SSD {list(SSD_PATH)} and wkv "
         f"{list(WKV_PATH)}, with initial states; f32 tol {SSD_TOL} / {WKV_TOL}, "
-        f"bf16 y within one bf16 ulp of its largest value); max |err| "
+        f"bf16 y within one bf16 ulp of its largest value; SSD bf16 on the "
+        f"tensor-core kernel, f32 on FMA); max |err| "
         f"{ {f'{k[0]} {k[1]}': f'{v:.3g}' for k, v in err.items()} }")
     return err
 
@@ -524,28 +556,37 @@ def phase_times(ks, torch, gen, main: dict, err: dict) -> list:
     import torch.nn.functional as F
 
     records = []
-    # stencil5_block at the main path's largest fragment shape, on strided
-    # views of 2048² blocks as the runtime passes them
-    shape = max(main["shapes"]["stencil5_block"], key=lambda s: s[0] * s[1])
-    rows, cols = shape
+    # stencil5_block on strided views of 2048² blocks, as the runtime
+    # passes them: at the main path's largest fragment, and at its largest
+    # 1-wide halo sliver (the slivers' launches, 1 x 1 corners included,
+    # cost about a launch each); each with the launches of its kind
+    shapes = main["shapes"]["stencil5_block"]
+    slivers = {s: n for s, n in shapes.items() if min(s) == 1}
+    kinds = [("fragment", max(shapes, key=lambda s: s[0] * s[1]),
+              sum(n for s, n in shapes.items() if s not in slivers))]
+    if slivers:
+        kinds.append(("sliver", max(slivers, key=lambda s: s[0] * s[1]),
+                      sum(slivers.values())))
     blocks = [torch.randn(MAIN_BLOCK, MAIN_BLOCK, dtype=torch.float64,
                           device=DEVICE, generator=gen) for _ in range(5)]
-    xs = [b[:rows, :cols] for b in blocks]
-    ms = cuda_ms(lambda: ks.stencil5_block(*xs, weight=0.2))
-    plain_ms = cuda_ms(lambda: ks.stencil5_block_plain(*xs, weight=0.2))
-    nbytes = 6 * rows * cols * 8  # five operands read, one result written
-    records.append(dict(
-        name="stencil5_block", route="cuda", source=STENCIL_CU,
-        replaces="src/repro/kernels/stencil/kernel.py:88",
-        launches=main["launches"]["stencil5_block"],
-        max_abs_err=err["stencil5_block"], ms=ms, plain_ms=plain_ms,
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=None,
-    ))
-    log(f"[6] stencil5_block {rows}x{cols} f64 (strided views of "
-        f"{MAIN_BLOCK}² blocks): kernel {ms:.4f} ms | bound {records[-1]['bound_ms']:.4f} ms "
-        f"({nbytes / 1e6:.1f} MB at 3.35 TB/s) | plain {plain_ms:.4f} ms | "
-        f"library: none (no single PyTorch call computes the 5-way sum)")
+    for kind, (rows, cols), launches in kinds:
+        xs = [b[:rows, :cols] for b in blocks]
+        ms = cuda_ms(lambda: ks.stencil5_block(*xs, weight=0.2))
+        plain_ms = cuda_ms(lambda: ks.stencil5_block_plain(*xs, weight=0.2))
+        nbytes = 6 * rows * cols * 8  # five operands read, one result written
+        records.append(dict(
+            name=f"stencil5_block[{kind}]", route="cuda", source=STENCIL_CU,
+            replaces="src/repro/kernels/stencil/kernel.py:88",
+            launches=launches,
+            max_abs_err=err["stencil5_block"], ms=ms, plain_ms=plain_ms,
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=None,
+        ))
+        log(f"[6] stencil5_block {rows}x{cols} f64, the main path's {kind} "
+            f"({launches} launches; strided views of {MAIN_BLOCK}² blocks): kernel "
+            f"{ms:.4f} ms | bound {records[-1]['bound_ms']:.6f} ms "
+            f"({nbytes / 1e6:.3f} MB at 3.35 TB/s) | plain {plain_ms:.4f} ms | "
+            f"library: none (no single PyTorch call computes the 5-way sum)")
     del blocks, xs
     # jacobi_sweep at the main path's grid
     H = W = MAIN_N + 2
@@ -832,6 +873,11 @@ def phase_recurrent_times(ssd, wkv, torch, gen, launches: dict, err: dict) -> li
     time."""
     records = []
     b, s, h, p, n = SSD_PATH
+    # the build of the path's instance: n 64, cp.async loads
+    for entry, regs, spill_st, spill_ld in ptxas_report(ssd.load().log,
+                                                        "ssd_scan_tc_kernelILi64ELb1E"):
+        log(f"[14] ptxas, ssd_scan_tc_kernel<64, async> ({entry}): {regs} registers, "
+            f"{spill_st} bytes spill stores, {spill_ld} bytes spill loads")
     x, dt, A, B, C, _ = ssd_inputs(torch, gen, b, s, h, p, n, torch.bfloat16, False)
     s0 = torch.zeros(b, h, p, n, device=DEVICE)
     ms = cuda_ms(lambda: ssd.ssd_scan(x, dt, A, B, C, s0))
@@ -841,14 +887,15 @@ def phase_recurrent_times(ssd, wkv, torch, gen, launches: dict, err: dict) -> li
     flops = 4 * b * s * h * p * n  # state update and output: 2 multiply-adds an entry
     bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3
     records.append(dict(
-        name="ssd_scan", route="cuda", source=SSD_CU,
+        name="ssd_scan_tc", route="cuda", source=SSD_CU,
         replaces="src/repro/kernels/mamba2_scan/kernel.py:94",
-        launches=launches["ssd_scan"], max_abs_err=err[("ssd_scan", "bfloat16")],
+        launches=launches["ssd_scan_tc"], max_abs_err=err[("ssd_scan", "bfloat16")],
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S
         else "operations", library_ms=None,
     ))
-    log(f"[14] ssd_scan x [{b}, {s}, {h}, {p}] n {n}, bf16 x/B/C, f32 dt/A/state: "
+    log(f"[14] ssd_scan x [{b}, {s}, {h}, {p}] n {n}, bf16 x/B/C, f32 dt/A/state "
+        f"(the tensor-core kernel; {launches['ssd_scan_tc']} launches over zamba2's prefill): "
         f"kernel {ms:.3f} ms | bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at "
         f"3.35 TB/s; {flops / 1e9:.1f} GFLOP = {flops / BF16_FLOP_PER_S * 1e3:.4f} ms "
         f"at 989 TFLOP/s, {flops / 67e12 * 1e3:.4f} ms at the 67 TFLOP/s f32 rate) | "
@@ -917,6 +964,10 @@ def main() -> int:
     log(f"[1] flash library SASS: {sass['HGMMA']} HGMMA (wgmma) and {sass['UTMALDG']} "
         f"UTMALDG (TMA load) instructions")
     assert sass["HGMMA"] > 0 and sass["UTMALDG"] > 0, sass
+    sass = sass_counts(built[libs.index(ssd)].path, ("HMMA", "LDGSTS"))
+    log(f"[1] SSD scan library SASS: {sass['HMMA']} HMMA (mma.sync) and {sass['LDGSTS']} "
+        f"LDGSTS (cp.async) instructions")
+    assert sass["HMMA"] > 0 and sass["LDGSTS"] > 0, sass
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     err = phase_kernels_vs_plain(ks, torch, gen)
     flash_err = phase_flash_vs_plain(fa, torch, gen)
@@ -928,11 +979,13 @@ def main() -> int:
     records = phase_times(ks, torch, gen, main_info, err)
     torch.cuda.empty_cache()
     launches = {}
-    # every bf16 flash launch of a prefill goes to the wgmma kernel
+    # every bf16 flash launch of a prefill goes to the wgmma kernel, every
+    # bf16 SSD launch to the tensor-core kernel
     for tags, (arch, expect), kernels, f32_kw in (
         (("7", "8"), DANUBE, {"flash_attention": (fa, 24), "flash_attention_wgmma": (fa, 24)},
          dict(n_layers=2)),
-        (("9", "10"), ZAMBA, {"ssd_scan": (ssd, 54), "flash_attention": (fa, 9),
+        (("9", "10"), ZAMBA, {"ssd_scan": (ssd, 54), "ssd_scan_tc": (ssd, 54),
+                              "flash_attention": (fa, 9),
                               "flash_attention_wgmma": (fa, 9)},
          dict(n_layers=6, layer_pattern="MMMMMH")),
         (("11", "12"), RWKV, {"wkv6": (wkv, 32)}, dict(n_layers=2)),
@@ -947,7 +1000,7 @@ def main() -> int:
                                          launches[arch]["flash_attention_wgmma"], flash_err))
         torch.cuda.empty_cache()
     records += phase_recurrent_times(ssd, wkv, torch, gen, {
-        "ssd_scan": launches[ZAMBA[0]]["ssd_scan"], "wkv6": launches[RWKV[0]]["wkv6"]},
+        "ssd_scan_tc": launches[ZAMBA[0]]["ssd_scan_tc"], "wkv6": launches[RWKV[0]]["wkv6"]},
         rec_err)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": records}))

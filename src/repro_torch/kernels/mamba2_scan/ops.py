@@ -1,11 +1,14 @@
 """Wrapper of the hand-written Mamba2 SSD scan kernel, with its plain
 version.
 
-``ssd_scan`` checks its inputs, then either launches the CUDA kernel
+``ssd_scan`` checks its inputs, then either launches a CUDA kernel
 (``csrc/ssd_scan.cu``) on the current stream — for tensors on a CUDA
 device — or runs ``ssd_scan_plain`` — for tensors on the CPU, where no
-kernel exists.  There is no other route: a CUDA tensor launches the
-kernel or raises.
+kernel exists.  On the card the dtype picks the kernel: bf16 x, B, C run
+``ssd_scan_tc_kernel`` (the chunked dual form on tensor cores, with
+asynchronous chunk loads), f32 ``ssd_scan_simt_kernel`` (the recurrence
+token by token on FP32 FMA).  There is no other route: a CUDA tensor
+launches its dtype's kernel or raises.
 
 The layout is the JAX wrapper's (``repro.kernels.mamba2_scan``): x
 ``[b, s, h, p]``, dt ``[b, s, h]``, A ``[h]``, B and C ``[b, s, n]``
@@ -15,7 +18,8 @@ wrapper nothing is padded: the kernel walks the true ``s``.  There is no
 and the function does not depend on it beyond float rounding.
 
 ``launches`` counts kernel launches (plain-version calls are not
-launches).
+launches): ``"ssd_scan"`` every launch, ``"ssd_scan_tc"`` and
+``"ssd_scan_simt"`` each route's.
 """
 from __future__ import annotations
 
@@ -31,11 +35,13 @@ from repro_torch.kernels.build import BuiltLibrary, build_library
 __all__ = ["ssd_scan", "ssd_scan_plain", "launches", "reset_launches", "load"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
-MAX_STATE = 128  # kMaxState in ssd_scan.cu: the largest n the kernel holds
+MAX_STATE = 128  # kMaxState in ssd_scan.cu: the largest n the kernels hold
+TC_CHUNK = 64  # tc::kQ in ssd_scan.cu: tokens per chunk of the tensor-core kernel
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_ROUTE = {torch.float32: "ssd_scan_simt", torch.bfloat16: "ssd_scan_tc"}
 
-launches = {"ssd_scan": 0}
+launches = {"ssd_scan": 0, "ssd_scan_tc": 0, "ssd_scan_simt": 0}
 _count_lock = threading.Lock()
 _bind_lock = threading.Lock()
 _bound: set = set()
@@ -43,12 +49,14 @@ _bound: set = set()
 
 def reset_launches() -> None:
     with _count_lock:
-        launches["ssd_scan"] = 0
+        for name in launches:
+            launches[name] = 0
 
 
-def _count() -> None:
+def _count(route: str) -> None:
     with _count_lock:
         launches["ssd_scan"] += 1
+        launches[route] += 1
 
 
 def load() -> BuiltLibrary:
@@ -61,11 +69,13 @@ def load() -> BuiltLibrary:
                 fn = getattr(built.lib, f"ssd_scan_{sfx}")
                 fn.argtypes = [p] * 8 + [i64] * 5 + [p]
                 fn.restype = ctypes.c_int
-            built.lib.ssd_scan_max_state.argtypes = []
-            built.lib.ssd_scan_max_state.restype = ctypes.c_int
-            if built.lib.ssd_scan_max_state() != MAX_STATE:
-                raise RuntimeError("ssd_scan.cu and ops.py disagree on the "
-                                   "largest state size")
+            for name, want in (("ssd_scan_max_state", MAX_STATE),
+                               ("ssd_scan_tc_chunk", TC_CHUNK)):
+                fn = getattr(built.lib, name)
+                fn.argtypes = []
+                fn.restype = ctypes.c_int
+                if fn() != want:
+                    raise RuntimeError(f"ssd_scan.cu and ops.py disagree on {name}")
             _bound.add(built.path)
     return built
 
@@ -155,7 +165,8 @@ def ssd_scan(
     x ``[b, s, h, p]`` and B, C ``[b, s, n]`` in one dtype (float32 or
     bfloat16); dt ``[b, s, h]`` (> 0), A ``[h]`` (< 0) and ``init_state``
     ``[b, h, p, n]`` (None: zeros) in float32; contiguous, ``n <= 128``
-    on the card.  Returns (y ``[b, s, h, p]`` in x's dtype, final state
+    on the card, where bf16 runs the tensor-core kernel and float32 the
+    FMA kernel.  Returns (y ``[b, s, h, p]`` in x's dtype, final state
     ``[b, h, p, n]`` float32)."""
     _check(x, dt, A, B, C, init_state)
     if x.device.type == "cpu":
@@ -181,5 +192,5 @@ def ssd_scan(
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan: kernel launch failed (cudaError {rc})")
-    _count()
+    _count(_ROUTE[x.dtype])
     return y, final

@@ -236,6 +236,8 @@ WKV_CASES = [
 # tests/test_kernels.py's f32 tolerances; a bf16 y (both sides sum in f32
 # and round once) within one bf16 ulp of its largest value
 SSD_TOL, WKV_TOL, BF16_REL = 2e-3, 1e-3, 2.0 ** -7
+# bf16 runs the chunked dual form on tensor cores, f32 the FMA recurrence
+SSD_ROUTE = {torch.float32: "ssd_scan_simt", torch.bfloat16: "ssd_scan_tc"}
 
 
 def _assert_recurrent_close(got, want, tol):
@@ -257,10 +259,31 @@ def test_ssd_scan_kernel_matches_plain(cuda, dtype, case):
     x, dt = f(b, s, h, p).to(dtype), torch.nn.functional.softplus(f(b, s, h))
     A, B, C = -torch.exp(f(h) * 0.5), f(b, s, n).to(dtype), f(b, s, n).to(dtype)
     s0 = f(b, h, p, n) if with_state else None
-    before = ssd.launches["ssd_scan"]
+    route = SSD_ROUTE[dtype]
+    before = dict(ssd.launches)
     got = ssd.ssd_scan(x, dt, A, B, C, s0)
     torch.cuda.synchronize()
-    assert ssd.launches["ssd_scan"] == before + 1
+    assert ssd.launches["ssd_scan"] == before["ssd_scan"] + 1
+    assert ssd.launches[route] == before[route] + 1, f"not on {route}"
+    _assert_recurrent_close(got, ssd.ssd_scan_plain(x, dt, A, B, C, s0), SSD_TOL)
+
+
+def test_ssd_scan_tc_kernel_at_the_zamba2_path_shape(cuda):
+    """x [2, 8192, 80, 64], n 64 in bf16 with an initial state, as the
+    zamba2-2.7b prefill calls it: on the tensor-core kernel, within the
+    tolerances of the cases above."""
+    from repro_torch.kernels import mamba2_scan as ssd
+
+    b, s, h, p, n = 2, 8192, 80, 64, 64
+    g = torch.Generator(device=cuda).manual_seed(7)
+    f = lambda *shape: torch.randn(*shape, device=cuda, generator=g)
+    x, dt = f(b, s, h, p).bfloat16(), torch.nn.functional.softplus(f(b, s, h))
+    A, B, C = -torch.exp(f(h) * 0.5), f(b, s, n).bfloat16(), f(b, s, n).bfloat16()
+    s0 = f(b, h, p, n)
+    before = ssd.launches["ssd_scan_tc"]
+    got = ssd.ssd_scan(x, dt, A, B, C, s0)
+    torch.cuda.synchronize()
+    assert ssd.launches["ssd_scan_tc"] == before + 1
     _assert_recurrent_close(got, ssd.ssd_scan_plain(x, dt, A, B, C, s0), SSD_TOL)
 
 

@@ -31,6 +31,7 @@ from repro.kernels.mamba2_scan import ssd_scan_ref
 from repro.models import mamba2 as jmamba
 import repro_torch.configs as tcfg
 from repro_torch.kernels.mamba2_scan import launches, ssd_scan, ssd_scan_plain
+from repro_torch.kernels.mamba2_scan.ops import TC_CHUNK
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import decode_step, forward, mamba2 as tmamba, model as tmodel
 from repro_torch.models import prefill
@@ -134,6 +135,72 @@ def test_wrapper_checks_its_inputs():
         ssd_scan(x, dt, A, B, C, torch.zeros(1, 2, 4, 7))
     with pytest.raises(ValueError, match="C"):
         ssd_scan(x, dt, A, B, C[:, :5])
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core kernel's precision scheme, emulated
+# ---------------------------------------------------------------------------
+
+
+def _dual_form(x, dt, A, B, C, s0, *, split, chunk=TC_CHUNK):
+    """The bf16 kernel's arithmetic (``ssd_scan_tc_kernel``), emulated on
+    the CPU: per chunk of ``chunk`` tokens, cum = cumsum(dt A) and
+
+        S = C Bᵀ;  P = (t >= l) exp(cum_t - cum_l) dt_l S
+        y = P x + exp(cum_t) (C stateᵀ)
+        state = exp(cum_Q) state + (x w)ᵀ B,  w_l = exp(cum_Q - cum_l) dt_l
+
+    x, B and C enter as their bf16 values; each factor the kernel computes
+    in f32 (P, the state for C stateᵀ, x w) enters its product as a bf16
+    pair hi + lo with lo = bf16(v - hi) (``split``, the kernel's scheme),
+    or rounded once to bf16.  Products of bf16 values are exact in f32,
+    and every sum is f32, as on the tensor cores."""
+    xf, Bf, Cf = x.float(), B.float(), C.float()
+    b, s, h, p = x.shape
+    state = (torch.zeros(b, h, p, B.shape[-1]) if s0 is None else s0.clone())
+    y = torch.empty(b, s, h, p)
+
+    def operand(v):
+        hi = v.bfloat16().float()
+        return (hi, (v - hi).bfloat16().float()) if split else (hi,)
+
+    for t0 in range(0, s, chunk):
+        sl = slice(t0, t0 + chunk)  # the last chunk may be shorter
+        d = dt[:, sl]  # [b, Q, h]
+        q = d.shape[1]
+        cum = torch.cumsum(d * A, dim=1)
+        S = Cf[:, sl] @ Bf[:, sl].transpose(1, 2)  # [b, t, l]
+        below = torch.ones(q, q, dtype=torch.bool).tril()[None, :, :, None]
+        decay = torch.where(below, torch.exp(cum[:, :, None] - cum[:, None]), 0.0)
+        P = decay * d[:, None] * S[..., None]  # [b, t, l, h]
+        y_diag = sum(torch.einsum("btlh,blhp->bthp", f, xf[:, sl]) for f in operand(P))
+        y_off = sum(torch.einsum("btn,bhpn->bthp", Cf[:, sl], f) for f in operand(state))
+        y[:, sl] = y_diag + torch.exp(cum)[..., None] * y_off
+        w = torch.exp(cum[:, -1:] - cum) * d  # [b, Q, h]
+        xw = xf[:, sl] * w[..., None]
+        state = state * torch.exp(cum[:, -1])[..., None, None] + sum(
+            torch.einsum("blhp,bln->bhpn", f, Bf[:, sl]) for f in operand(xw))
+    return y.to(x.dtype), state
+
+
+# chip_smoke.ssd_inputs's draw at a quarter of zamba2's heads and an
+# eighth of its prompt, with the path's p 64 and n 64; then a ragged last
+# chunk (1000 = 15 x 64 + 40) with an initial state
+@pytest.mark.parametrize("s,with_state", [(1024, False), (1000, True)])
+def test_tc_kernel_precision_scheme_holds_the_tolerances(s, with_state):
+    """The hi/lo split keeps the final state within SSD_TOL (2e-3, the
+    card's kernel-vs-plain bound) and y within 2^-7 of its largest value
+    of the f32 recurrence; rounding each computed factor once to bf16
+    puts the state more than five times over that bound."""
+    x, dt, A, B, C, s0 = map(_t, _ssd_inputs(9, 1, s, 4, 64, 64, with_state))
+    x, B, C = x.bfloat16(), B.bfloat16(), C.bfloat16()
+    y_ref, fin_ref = ssd_scan_plain(x, dt, A, B, C, s0)
+    tol_y = BF16_REL * float(y_ref.float().abs().max())
+    y, fin = _dual_form(x, dt, A, B, C, s0, split=True)
+    assert float((y.float() - y_ref.float()).abs().max()) <= tol_y
+    assert float((fin - fin_ref).abs().max()) <= KERNEL_TOL
+    _, fin1 = _dual_form(x, dt, A, B, C, s0, split=False)
+    assert float((fin1 - fin_ref).abs().max()) > 5 * KERNEL_TOL
 
 
 # ---------------------------------------------------------------------------
