@@ -13,7 +13,9 @@ Phases, each asserted (any failure exits non-zero):
    SSD scan library's (its bf16 kernel runs on mma.sync and cp.async),
    each asserted above 0;
 2. hold every kernel to its plain PyTorch version on the card (the
-   stencil kernels, then flash attention in f32 and bf16 over head dims
+   stencil kernels, ``torch.equal``: ``stencil5_group`` on strided
+   slivers, the shared-memory route, an aliased output and a group over
+   two launches; then flash attention in f32 and bf16 over head dims
    80, 120 and 128, ragged lengths, GQA, windows, a short ``sk_valid``,
    h2o-danube's path shape in f32 and bf16 and zamba2's in bf16; each
    launch asserted on its dtype's kernel: bf16 on wgmma, f32 on FMA);
@@ -22,24 +24,34 @@ Phases, each asserted (any failure exits non-zero):
    blocks on the GPU) at 16384², 6 sweeps, 16 processes, 2048² blocks,
    then its compiled-sweep check (whole-grid ``jacobi_sweep``); both
    must equal a sequential host-NumPy float64 stencil bit for bit, and
-   every kernel of the path must have been launched;
+   every kernel of the path must have been launched, the stencil kernel
+   fewer times than it computed fragments, with no copy after one.
+   Prints the drain's device-timed ``compute_busy``, ``host_busy``, the
+   device busy share, a makespan that ends at device completion and
+   ``wait_fraction``; then runs it once more under ``torch.profiler`` for
+   the device time of its kernels and copies;
 4. the paper's own regime (4096², 512² blocks, 16 processes) under
    ``sync="demand"`` and ``sync="barrier"``;
 5. the overlap probe of examples/stencil_latency_hiding.py (256², 8
    workers, 10 ms injected latency) on the async and blocking channels;
 6. each stencil kernel's time at the main path's shapes beside its
    bound, its plain version's time and a PyTorch yardstick where one
-   exists: ``stencil5_block`` at the largest fragment and at the largest
-   1-wide halo sliver, each with its kind's launch count;
+   exists: ``stencil5_block`` on the interior fragment as the runtime
+   passes it (five shifts of one 2048² block, written into a block
+   slice) and on one whole sweep's 576 fragments, each beside the
+   distinct-bytes bound and the five-operand bound;
 7. the LM path: h2o-danube-3-4b at full width and depth (24 layers,
    d_model 3840, 32/8 heads of 120, window 4096, bf16, random weights
    from seed 0) serving two prompts of 8192 seeded tokens —
    ``make_prefill_step`` then 16 greedy ``make_serve_step`` steps — with
    exactly one flash launch per layer in prefill, every one on the wgmma
    kernel, and none in decode;
-8. the same prompts through the torch twins of the kernels
-   (``use_flash=False``), teacher-forced on the tokens of phase 7, in
-   bf16 at full depth and in f32 at full width with 2 layers;
+8. the per-layer check: each block fed the bf16 twin's activation, its
+   update y - x with the kernels and with the twin against the block in
+   f32 (``layer_update_errors``), the kernels within max(2^-6, 1.5 x the
+   twin) on every block; then the same prompts through the torch twins
+   of the kernels (``use_flash=False``), teacher-forced on the tokens of
+   phase 7, in bf16 at full depth and in f32 at full width with 2 layers;
 9. zamba2-2.7b served the same way (54 layers ``MMMMMH`` x 9, d_model
    2560, 80 SSM heads of 64, state 64, the shared MHA block 32 x 80,
    d_ff 10240, vocab 32000, tied embeddings): exactly 54 SSD scan
@@ -65,8 +77,8 @@ Phase 2 also holds the SSD scan and wkv kernels to their plain versions
 several heads, and each path's own shape), each SSD launch asserted on
 its dtype's kernel: bf16 on the tensor-core kernel, f32 on FMA.
 
-The second-to-last line of output is the JSON ``kernels`` record, the
-line before it the card's name and power limit, and the last line
+The third-to-last line of output is the JSON ``kernels`` record, the
+second-to-last the card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, when no GPU is visible or the port is missing.
 """
@@ -268,6 +280,41 @@ def max_abs_err(a, b) -> float:
 # ---------------------------------------------------------------------------
 
 
+def plus_views(blk, rows: int, cols: int, c0: int = 1) -> tuple:
+    """The five operands of an interior fragment as the runtime passes
+    them: the centre of ``blk`` (rows from 1, columns from ``c0``) and its
+    shifts by one row up and down and one column left and right."""
+    r, c = slice(1, rows + 1), slice(c0, c0 + cols)
+    return (blk[r, c], blk[0:rows, c], blk[2:rows + 2, c],
+            blk[r, c0 - 1:c0 - 1 + cols], blk[r, c0 + 1:c0 + 1 + cols])
+
+
+def stencil_group_cases(torch, gen, dtype) -> list:
+    """(name, fragments) of stencil5_group on the card: strided slivers
+    and fragments, the shared-memory route (shifts of one block at each
+    16-byte phase, and an odd row stride), an output that is one of its
+    operands (staged), and more fragments than one launch holds."""
+    def rnd(*shape):
+        return torch.randn(*shape, dtype=dtype, device=DEVICE, generator=gen)
+
+    def zeros(*shape):
+        return torch.zeros(*shape, dtype=dtype, device=DEVICE)
+
+    mixed = []
+    for rows, cols in ((1, 1), (1, 2046), (2046, 1), (500, 37), (1, 1), (2046, 2046)):
+        xs = tuple(rnd(rows + 2, 2 * cols + 3)[1:rows + 1, 1:2 * cols + 1:2] for _ in range(5))
+        mixed.append((xs, zeros(rows + 3, 3 * cols + 4)[2:rows + 2, 1::3][:, :cols]))
+    shared = []
+    for n, c0 in ((2048, 1), (516, 2), (516, 3), (516, 4), (301, 1)):
+        shared.append((plus_views(rnd(n, n), n - 2, n - 1 - c0, c0),
+                       zeros(n, n)[1:n - 1, c0:n - 1]))
+    blk = rnd(600, 700)
+    return [("mixed strided", mixed), ("shared route", shared),
+            ("aliased output", [(plus_views(blk, 598, 698), blk[1:599, 1:699])]),
+            ("two launches", [(tuple(rnd(3, 5) for _ in range(5)), zeros(3, 5))
+                              for _ in range(300)])]
+
+
 def phase_kernels_vs_plain(ks, torch, gen) -> dict:
     """Every kernel against its plain version on the card; returns the
     largest |kernel - plain| seen per kernel."""
@@ -284,6 +331,16 @@ def phase_kernels_vs_plain(ks, torch, gen) -> dict:
             torch.cuda.synchronize()
             assert torch.equal(got, want), (dtype, rows, cols)
             err["stencil5_block"] = max(err["stencil5_block"], max_abs_err(got, want))
+        for name, frags in stencil_group_cases(torch, gen, dtype):
+            want = [ks.stencil5_block_plain(*xs, weight=0.2) for xs, _ in frags]
+            before, staged = ks.launches["stencil5_block"], sum(ks.staged_copies.values())
+            ks.stencil5_group(frags, weight=0.2)
+            torch.cuda.synchronize()
+            for (_, out), w in zip(frags, want):
+                assert torch.equal(out, w), (dtype, name)
+            assert ks.launches["stencil5_block"] - before == -(-len(frags) // ks.GROUP_MAX_FRAGS)
+            assert sum(ks.staged_copies.values()) - staged == (name == "aliased output")
+            del frags, want
         for H, W in ((4098, 4098), (1000, 777)):
             x = torch.randn(H, W, dtype=dtype, device=DEVICE, generator=gen)
             a, b = x, x
@@ -296,8 +353,12 @@ def phase_kernels_vs_plain(ks, torch, gen) -> dict:
                 else:
                     assert e <= 1e-6, (H, W, sweep, e)
                 err["jacobi_sweep"] = max(err["jacobi_sweep"], e)
-    log(f"[2] kernels == plain versions on the card "
-        f"(stencil5 f64/f32 512², 2048², 500x37 strided: torch.equal; "
+    log(f"[2] kernels == plain versions on the card (stencil5_block f64/f32 512², "
+        f"2048², 500x37 strided: torch.equal; stencil5_group f64/f32, torch.equal: "
+        f"strided slivers and fragments with strided outputs, the shared-memory route "
+        f"on shifts of one block (2048², 516² at 3 more centre columns, an odd row "
+        f"stride), an "
+        f"aliased output staged, 300 fragments over 2 launches; "
         f"jacobi 4098², 1000x777, 4 sweeps: f64 equal, f32 atol 1e-6); "
         f"max |err| {err}")
     return err
@@ -446,10 +507,18 @@ def phase_recurrent_vs_plain(ssd, wkv, torch, gen) -> dict:
     return err
 
 
-def run_stencil(repro_torch, apps, n, iters, nprocs, block, **policy_kw):
+def run_stencil(repro_torch, apps, n, iters, nprocs, block, profile=False, **policy_kw):
     """The flagship through the port's runtime; returns (result, stats,
-    timings, peak device bytes)."""
+    timings, peak device bytes).  With ``profile``, ``timings`` also
+    holds ``kernel_s``: the device time of every kernel and copy that
+    ran from the start of recording to the end of the drain, from
+    ``torch.profiler`` (CUDA activity only)."""
+    import contextlib
+
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
 
     from repro_torch.api import ExecutionPolicy, RuntimeConfig
 
@@ -458,23 +527,45 @@ def run_stencil(repro_torch, apps, n, iters, nprocs, block, **policy_kw):
     policy = ExecutionPolicy(flush="async", channel="async", backend="torch",
                              **policy_kw)
     torch.cuda.reset_peak_memory_stats()
+    window = profiler(activities=[ProfilerActivity.CUDA]) if profile else contextlib.nullcontext()
     with repro_torch.runtime(cfg, policy) as rt:
-        t0 = time.perf_counter()
-        full = apps.jacobi_stencil(n=n, iters=iters)
-        t1 = time.perf_counter()
-        repro_torch.evaluate(full).block_until_ready()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
+        with window:
+            t0 = time.perf_counter()
+            full = apps.jacobi_stencil(n=n, iters=iters)
+            t1 = time.perf_counter()
+            repro_torch.evaluate(full).block_until_ready()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
         assert rt.storage and all(t.device.type == DEVICE for t in rt.storage.values())
         assert all(t.device.type == DEVICE for t in rt.scratch.values())
         result = np.asarray(full)
         t3 = time.perf_counter()
         stats = rt.stats()
     times = dict(record_s=t1 - t0, drain_s=t2 - t1, gather_s=t3 - t2)
+    if profile:
+        us = [getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+              for e in window.key_averages() if e.device_type == DeviceType.CUDA]
+        times["kernel_s"] = sum(us) / 1e6
     return result, stats, times, torch.cuda.max_memory_allocated()
 
 
+def thread_time_step() -> float:
+    """The smallest step of ``time.thread_time()`` seen while spinning:
+    the granularity of the host_busy readings on this machine."""
+    steps = []
+    t = time.thread_time()
+    while len(steps) < 5:
+        u = time.thread_time()
+        if u != t:
+            steps.append(u - t)
+            t = u
+    return min(steps)
+
+
 def phase_main_path(repro_torch, apps, ks) -> dict:
+    """The flagship through the runtime with every kernel launch counted
+    from 0, then once more under torch.profiler for the device's own
+    busy time."""
     import torch
 
     ks.reset_launches()
@@ -487,7 +578,10 @@ def phase_main_path(repro_torch, apps, ks) -> dict:
     sweep_s = time.perf_counter() - t0
     swept = swept.cpu().numpy()
     launches = dict(ks.launches)
-    shapes = {k: dict(v) for k, v in ks.launch_shapes.items()}
+    frags = dict(ks.fragment_shapes)
+    sizes = dict(sorted(ks.group_sizes.items()))
+    staged = sum(ks.staged_copies.values())
+    n_frags = sum(frags.values())
     t0 = time.perf_counter()
     want = numpy_stencil(MAIN_N, MAIN_ITERS)
     numpy_s = time.perf_counter() - t0
@@ -497,23 +591,43 @@ def phase_main_path(repro_torch, apps, ks) -> dict:
     assert np.array_equal(swept, want), "jacobi_sweep iterations != host NumPy"
     for name, n in launches.items():
         assert n > 0, f"kernel {name} was not launched on the main path"
+    assert launches["stencil5_block"] < n_frags, "no fragment shared a launch"
+    # no copy launch after a stencil fragment: each wrote into its block
+    assert staged == 0, f"{staged} fragments were staged and copied"
     log(f"[3] main path: jacobi_stencil n={MAIN_N} iters={MAIN_ITERS} "
         f"nprocs={MAIN_PROCS} block={MAIN_BLOCK} f64 fusion on, blocks on cuda; "
         f"== host NumPy bit for bit (runtime and {MAIN_ITERS} jacobi_sweep launches)")
-    log(f"    makespan {st.makespan * 1e3:.3f} ms  wait_fraction "
-        f"{st.wait_fraction:.4f}  comm_wait_fraction "
-        f"{st.comm_wait_fraction:.4f}  ops/s "
-        f"{st.ops_per_sec:.1f}  compute ops {st.n_compute_ops}  comm ops "
-        f"{st.n_comm_ops}")
+    log(f"    makespan {st.makespan * 1e3:.3f} ms (to device completion)  wait_fraction "
+        f"{st.wait_fraction:.4f}  comm_wait_fraction {st.comm_wait_fraction:.4f}  ops/s "
+        f"{st.ops_per_sec:.1f}  compute ops {st.n_compute_ops}  comm ops {st.n_comm_ops}; "
+        f"compute_busy (device) {st.total_compute:.4f} s, host_busy {st.total_host:.4f} s, "
+        f"device busy share {st.total_compute / st.makespan:.4f}")
     log(f"    record {times['record_s']:.3f} s  drain+sync {times['drain_s']:.3f} s  "
         f"gather (host copy of {result.nbytes / 1e9:.2f} GB) {times['gather_s']:.3f} s  "
-        f"jacobi_sweeps {sweep_s:.3f} s  host NumPy {numpy_s:.3f} s  "
-        f"peak device memory {peak / 1e9:.2f} GB")
-    log(f"    launches {launches}")
-    top = sorted(shapes["stencil5_block"].items(), key=lambda kv: -kv[1])[:5]
-    log(f"    stencil5_block launch shapes (top 5 of "
-        f"{len(shapes['stencil5_block'])}): {top}")
-    return dict(launches=launches, shapes=shapes)
+        f"jacobi_sweeps {sweep_s:.3f} s  host NumPy {numpy_s:.3f} s  peak device memory "
+        f"{peak / 1e9:.2f} GB")
+    log(f"    launches {launches}; stencil5 fragments {n_frags} in "
+        f"{launches['stencil5_block']} launches, {n_frags / launches['stencil5_block']:.2f} "
+        f"a launch; launches by fragments {sizes}; staged copies {staged} (no copy "
+        f"launch after a fragment)")
+    top = sorted(frags.items(), key=lambda kv: -kv[1])[:5]
+    log(f"    stencil5 fragment shapes (top 5 of {len(frags)}): {top}")
+    log(f"    host_busy is thread time, which here steps by {thread_time_step() * 1e3:.3f} ms")
+    # the event pairs count any gap the host leaves inside a payload on an
+    # idle device; the profiler's kernel time is the device's busy time
+    del result
+    result, prof_st, prof_times, _ = run_stencil(
+        repro_torch, apps, MAIN_N, MAIN_ITERS, MAIN_PROCS, MAIN_BLOCK, profile=True)
+    assert np.array_equal(result, want), "profiled run != host NumPy"
+    window = prof_times["record_s"] + prof_times["drain_s"]
+    kernel_s = prof_times["kernel_s"]
+    log(f"    profiled run after (torch.profiler, CUDA activity): kernels and copies "
+        f"{kernel_s:.4f} s of device time over record + drain ({window:.3f} s, share "
+        f"{kernel_s / window:.4f}) and {kernel_s / prof_st.makespan:.4f} of its makespan "
+        f"{prof_st.makespan * 1e3:.3f} ms; its event-pair compute_busy "
+        f"{prof_st.total_compute:.4f} s (share {prof_st.total_compute / prof_st.makespan:.4f})")
+    assert kernel_s > 0, "the profiler recorded no device time"
+    return dict(launches=launches, fragments=frags)
 
 
 def phase_paper_regime(repro_torch, apps, ks) -> None:
@@ -552,42 +666,133 @@ def phase_overlap_probe(repro_torch, apps) -> None:
         f"{st_off.makespan * 1e3:.1f} ms | results bit-identical")
 
 
+def sweep_fragments(torch, gen, n: int, block: int) -> list:
+    """One sweep of the flagship's fused stencil as the runtime splits
+    it: ``work`` (n², in block² blocks) from five shifted views of
+    ``full`` ((n+2)², in block² blocks, the last row and column of blocks
+    2 wide).  Each output block has 9 fragments, cut where an operand
+    crosses into the next block: (block-2)² with its five operands in
+    one block (the shared route), and 1-wide slivers and 1 x 1 corners."""
+    N = n + 2
+    nb = -(-N // block)
+    full = {(i, j): torch.rand(min(block, N - i * block), min(block, N - j * block),
+                               dtype=torch.float64, device=DEVICE, generator=gen)
+            for i in range(nb) for j in range(nb)}
+    segs = ((0, block - 2), (block - 2, block - 1), (block - 1, block))
+    shifts = ((1, 1), (0, 1), (2, 1), (1, 0), (1, 2))  # centre, up, down, left, right
+    frags = []
+    for bi in range(n // block):
+        for bj in range(n // block):
+            work = torch.zeros(block, block, dtype=torch.float64, device=DEVICE)
+            for r0, r1 in segs:
+                for c0, c1 in segs:
+                    xs = []
+                    for dy, dx in shifts:
+                        R, C = bi * block + r0 + dy, bj * block + c0 + dx
+                        blk = full[(R // block, C // block)]
+                        xs.append(blk[R % block:R % block + r1 - r0,
+                                      C % block:C % block + c1 - c0])
+                    frags.append((tuple(xs), work[r0:r1, c0:c1]))
+    return frags
+
+
 def phase_times(ks, torch, gen, main: dict, err: dict) -> list:
     import torch.nn.functional as F
 
     records = []
-    # stencil5_block on strided views of 2048² blocks, as the runtime
-    # passes them: at the main path's largest fragment, and at its largest
-    # 1-wide halo sliver (the slivers' launches, 1 x 1 corners included,
-    # cost about a launch each); each with the launches of its kind
-    shapes = main["shapes"]["stencil5_block"]
-    slivers = {s: n for s, n in shapes.items() if min(s) == 1}
-    kinds = [("fragment", max(shapes, key=lambda s: s[0] * s[1]),
-              sum(n for s, n in shapes.items() if s not in slivers))]
-    if slivers:
-        kinds.append(("sliver", max(slivers, key=lambda s: s[0] * s[1]),
-                      sum(slivers.values())))
-    blocks = [torch.randn(MAIN_BLOCK, MAIN_BLOCK, dtype=torch.float64,
-                          device=DEVICE, generator=gen) for _ in range(5)]
-    for kind, (rows, cols), launches in kinds:
-        xs = [b[:rows, :cols] for b in blocks]
-        ms = cuda_ms(lambda: ks.stencil5_block(*xs, weight=0.2))
-        plain_ms = cuda_ms(lambda: ks.stencil5_block_plain(*xs, weight=0.2))
-        nbytes = 6 * rows * cols * 8  # five operands read, one result written
-        records.append(dict(
-            name=f"stencil5_block[{kind}]", route="cuda", source=STENCIL_CU,
-            replaces="src/repro/kernels/stencil/kernel.py:88",
-            launches=launches,
-            max_abs_err=err["stencil5_block"], ms=ms, plain_ms=plain_ms,
-            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-            library_ms=None,
-        ))
-        log(f"[6] stencil5_block {rows}x{cols} f64, the main path's {kind} "
-            f"({launches} launches; strided views of {MAIN_BLOCK}² blocks): kernel "
-            f"{ms:.4f} ms | bound {records[-1]['bound_ms']:.6f} ms "
-            f"({nbytes / 1e6:.3f} MB at 3.35 TB/s) | plain {plain_ms:.4f} ms | "
-            f"library: none (no single PyTorch call computes the 5-way sum)")
-    del blocks, xs
+    frags_run = main["fragments"]
+    n_interior = frags_run.get((MAIN_BLOCK - 2, MAIN_BLOCK - 2), 0)
+    # the interior fragment as the runtime passes it: five shifts of one
+    # 2048² block, written straight into another block's slice (the
+    # shared-memory route); the table is built before the timed launches
+    rows = cols = MAIN_BLOCK - 2
+    blk = torch.randn(MAIN_BLOCK, MAIN_BLOCK, dtype=torch.float64, device=DEVICE,
+                      generator=gen)
+    dst = torch.zeros_like(blk)
+    frag = [(plus_views(blk, rows, cols), dst[1:rows + 1, 1:cols + 1])]
+    prep = ks.prepare_group(frag)
+    assert prep.table[0, -1] & 3 == 3, "interior fragment not on the 16-byte shared route"
+    ms = cuda_ms(lambda: prep.launch(0.2))
+    plain_ms = cuda_ms(lambda: ks.stencil5_group_plain(frag, weight=0.2))
+    got = dst.clone()
+    prep.launch(0.2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dst)
+    plus = torch.tensor([[0.0, 0.2, 0.0], [0.2, 0.2, 0.2], [0.0, 0.2, 0.0]],
+                        dtype=torch.float64, device=DEVICE).view(1, 1, 3, 3)
+    library_ms = cuda_ms(lambda: F.conv2d(blk.view(1, 1, MAIN_BLOCK, MAIN_BLOCK), plus))
+    five = 6 * rows * cols * 8  # five operands read, one result written
+    distinct = (MAIN_BLOCK * MAIN_BLOCK - 4) * 8 + rows * cols * 8  # the block's plus, once
+    records.append(dict(
+        name="stencil5_block[interior fragment]", route="cuda", source=STENCIL_CU,
+        replaces="src/repro/kernels/stencil/kernel.py:88",
+        launches=main["launches"]["stencil5_block"], fragments=n_interior,
+        max_abs_err=err["stencil5_block"], ms=ms, plain_ms=plain_ms,
+        bound_ms=distinct / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        bound_ms_five_operands=five / HBM_BYTES_PER_S * 1e3, library_ms=library_ms,
+    ))
+    log(f"[6] stencil5_block {rows}x{cols} f64, the main path's interior fragment "
+        f"({n_interior} of them; five shifts of one {MAIN_BLOCK}² block, written in place "
+        f"into a block slice, the shared-memory route): kernel {ms:.4f} ms | bound "
+        f"{records[-1]['bound_ms']:.4f} ms (distinct bytes {distinct / 1e6:.1f} MB at 3.35 "
+        f"TB/s); five separate operands {records[-1]['bound_ms_five_operands']:.4f} ms "
+        f"({five / 1e6:.1f} MB) | plain {plain_ms:.4f} ms | yardstick F.conv2d 3x3 plus "
+        f"over the block (not used by the port) {library_ms:.4f} ms")
+    del blk, dst, frag, prep, got
+    # one whole sweep's group: 576 fragments of a 16384² run, as one
+    # worker would send them if it held them all (three launches)
+    frags = sweep_fragments(torch, gen, MAIN_N, MAIN_BLOCK)
+    t0 = time.perf_counter()
+    prep = ks.prepare_group(frags)
+    table_ms = (time.perf_counter() - t0) * 1e3
+    n_shared = int(((prep.table[:, -1] & 1) == 1).sum())
+    ms = cuda_ms(lambda: prep.launch(0.2), reps=10)
+    per_call = -(-len(frags) // ks.GROUP_MAX_FRAGS)
+    got = [out.clone() for _, out in frags]
+    plain_ms = cuda_ms(lambda: ks.stencil5_group_plain(frags, weight=0.2), reps=3, warmup=1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, out) for a, (_, out) in zip(got, frags)), "sweep group != plain"
+    del got
+    # the host's cost of a sweep's 576 fragments, on one thread: the
+    # table and the launches, against one launch into a new tensor and a
+    # copy into the block a fragment (the per-fragment route)
+    host = {"grouped": [], "per fragment": []}
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ks.stencil5_group(frags, weight=0.2)
+        host["grouped"].append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for xs, out in frags:
+            out.copy_(ks.stencil5_block(*xs, weight=0.2))
+        host["per fragment"].append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    host = {k: statistics.median(v) * 1e3 for k, v in host.items()}
+    log(f"[6] host time of one sweep's {len(frags)} fragments, one thread (median of 5): "
+        f"grouped {host['grouped']:.3f} ms ({host['grouped'] * 1e3 / len(frags):.1f} us a "
+        f"fragment) | per-fragment route {host['per fragment']:.3f} ms "
+        f"({host['per fragment'] * 1e3 / len(frags):.1f} us); difference x {MAIN_ITERS} "
+        f"sweeps {(host['per fragment'] - host['grouped']) * MAIN_ITERS / 1e3:.4f} s a run")
+    five = 6 * MAIN_N * MAIN_N * 8
+    distinct = ((MAIN_N + 2) ** 2 - 4) * 8 + MAIN_N * MAIN_N * 8  # the grid once, work once
+    records.append(dict(
+        name="stencil5_block[sweep group]", route="cuda", source=STENCIL_CU,
+        replaces="src/repro/kernels/stencil/kernel.py:88",
+        launches=main["launches"]["stencil5_block"], fragments=sum(frags_run.values()),
+        max_abs_err=err["stencil5_block"], ms=ms, plain_ms=plain_ms,
+        bound_ms=distinct / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        bound_ms_five_operands=five / HBM_BYTES_PER_S * 1e3, library_ms=None,
+    ))
+    log(f"[6] stencil5_group over one sweep's {len(frags)} fragments of the {MAIN_N}² "
+        f"run ({n_shared} on the shared route; {per_call} launches; table built on the host "
+        f"in {table_ms:.2f} ms, {table_ms * 1e3 / len(frags):.1f} us a fragment): kernel "
+        f"{ms:.4f} ms | bound {records[-1]['bound_ms']:.4f} ms (the grid read once, work "
+        f"written once: {distinct / 1e9:.2f} GB at 3.35 TB/s); five separate operands "
+        f"{records[-1]['bound_ms_five_operands']:.4f} ms | plain {plain_ms:.4f} ms | "
+        f"library: none (no single PyTorch call computes a table of fragments)")
+    del frags, prep
+    torch.cuda.empty_cache()
     # jacobi_sweep at the main path's grid
     H = W = MAIN_N + 2
     x = torch.rand(H, W, dtype=torch.float64, device=DEVICE, generator=gen)
@@ -801,6 +1006,77 @@ def phase_lm_agreement(torch, tag: str, lm: dict, f32_kw: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# the per-layer check's floor on the row-normalised error of a block's
+# update (fa.bf16_rel_err): fa.BF16_REL_TOL, four times the largest
+# relative rounding error of one bf16 value
+LAYER_FLOOR = 2.0 ** -6
+
+
+def layer_update_errors(torch, cfg, params, batch) -> list:
+    """Teacher-forced, per block: the bf16 twin's prefill (``use_flash``
+    False) runs through the trunk one block at a time, and each block's
+    input x_i goes to that block with the kernels (``use_flash`` True),
+    to the bf16 twin, and to the twin with the block's weights upcast to
+    f32 (one block at a time).  Compares the blocks' updates y - x_i, not
+    y, whose residual stream would hide a wrong kernel.  Returns
+    ``(index, letter, err(kernels, f32), err(twin, f32))`` per block, by
+    ``bf16_rel_err`` (row-normalised) over the whole [B, S, d_model]."""
+    import copy
+
+    from repro_torch.kernels.flash_attention import bf16_rel_err
+    from repro_torch.models.model import _apply_block, _embed_inputs, plan_segments
+
+    twin, kern = cfg.replace(use_flash=False), cfg.replace(use_flash=True)
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32", use_flash=False)
+    shared = getattr(params, "shared_attn", None)
+    shared32 = None if shared is None else copy.deepcopy(shared).float()
+    out = []
+    with torch.no_grad():
+        x, pos = _embed_inputs(twin, params, batch)
+        kw = dict(pos=pos, st=None, cache_pos=None, fresh=False)
+        for si, seg in enumerate(plan_segments(cfg)):
+            for r in range(seg.reps):
+                for j, letter in enumerate(seg.body):
+                    p = params.segs[si][r][f"{j}{letter}"]
+                    x32 = x.float()
+                    y_t = _apply_block(twin, letter, p, x, shared=shared, **kw)[0]
+                    y_k = _apply_block(kern, letter, p, x, shared=shared, **kw)[0]
+                    p32 = copy.deepcopy(p).float()
+                    u32 = _apply_block(cfg32, letter, p32, x32, shared=shared32, **kw)[0] - x32
+                    del p32
+                    out.append((len(out), letter, bf16_rel_err(y_k.float() - x32, u32),
+                                bf16_rel_err(y_t.float() - x32, u32)))
+                    del y_k, u32, x32
+                    x = y_t
+    return out
+
+
+def layer_bound(err_twin: float) -> float:
+    """A block's kernels may be off the f32 update by the floor, or by
+    half again the twin's own error where that is larger."""
+    return max(LAYER_FLOOR, LM_NOISE_FACTOR * err_twin)
+
+
+def layers_within_bound(errs) -> bool:
+    return all(e_k <= layer_bound(e_t) for _, _, e_k, e_t in errs)
+
+
+def phase_layer_check(torch, tag: str, lm: dict) -> None:
+    """The per-layer check at full width and depth on the path's prompts
+    (``layer_update_errors``), asserted on every block; prints the worst
+    block, by its margin to the bound."""
+    errs = layer_update_errors(torch, lm["cfg"], lm["params"], lm["batch"])
+    i, letter, e_k, e_t = max(errs, key=lambda e: e[2] / layer_bound(e[3]))
+    log(f"[{tag}] {lm['arch']}: per-layer check, {len(errs)} blocks teacher-forced on the "
+        f"bf16 twin's activations, update y - x against the block in f32, "
+        f"bf16_rel_err: worst block {i} ({letter}) kernels {e_k:.4g}, twin {e_t:.4g}, "
+        f"bound {layer_bound(e_t):.4g} = max({LAYER_FLOOR:.4g}, {LM_NOISE_FACTOR} x twin); "
+        f"largest kernels error {max(e[2] for e in errs):.4g}, twin "
+        f"{max(e[3] for e in errs):.4g}")
+    assert layers_within_bound(errs), [e for e in errs if e[2] > layer_bound(e[3])]
+    torch.cuda.empty_cache()
+
+
 def valid_pairs(S: int, window: int, B: int, H: int) -> int:
     """(query, key) pairs a causal, windowed prefill of S tokens keeps."""
     per_head = sum(min(i + 1, window) for i in range(S))
@@ -991,6 +1267,7 @@ def main() -> int:
         (("11", "12"), RWKV, {"wkv6": (wkv, 32)}, dict(n_layers=2)),
     ):
         lm = phase_lm(torch, tags[0], arch, expect, kernels)
+        phase_layer_check(torch, tags[1], lm)
         phase_lm_agreement(torch, tags[1], lm, f32_kw)
         launches[arch] = lm["launches"]
         del lm

@@ -1625,6 +1625,7 @@ class Runtime:
                 steal=self.exec_steal,
                 steal_threshold=self.exec_steal_threshold,
                 steal_latency=self.exec_steal_latency,
+                device=self.device,
             )
         return self._exec_executor_obj
 

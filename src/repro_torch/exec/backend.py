@@ -22,7 +22,11 @@ the wall-clock counterpart of ``repro_torch.core.scheduler.run_schedule``:
   any schedule that respects it interprets the payloads (shared
   ``repro_torch.core.engine.execute_payload``) into the same block contents.
   Every thread launches device work on the one current stream, so the
-  device runs it in the order the dependency system released it.
+  device runs it in the order the dependency system released it;
+* with blocks on a CUDA device, compute is timed on the device: a CUDA
+  event pair around each payload (or grouped launch) on that stream, the
+  pairs resolved when the drain ends (:class:`_DeviceClock`), and the
+  drain's makespan ends when the device has finished its work.
 
 Deadlock is detected structurally, not by timeout: when nothing is in
 flight and the dependency system still has pending operations, no future
@@ -34,19 +38,24 @@ two-sided rendezvous messaging.
 """
 from __future__ import annotations
 
+import collections
+import functools
 import itertools
 import threading
 import time
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.api.registry import get_backend, register_backend
 from repro_torch.core.engine import MapPayload, execute_payload, resolve_ref
 from repro_torch.core.graph import COMM, DependencySystem, OperationNode
 from repro_torch.core.scheduler import DeadlockError, format_stuck_ops
 from repro_torch.core.ufunc import loop_dtypes, operand_key, to_numpy_dtype
-from repro_torch.kernels.stencil import stencil5_block
+from repro_torch.kernels.stencil import prepare_group as prepare_stencil5_group
+from repro_torch.kernels.stencil import stencil5_group
 from repro_torch.obs import collector as _obs
 
 from .channels import RendezvousDeadlock, RendezvousMailbox, make_channel
@@ -69,7 +78,13 @@ __all__ = [
 
 
 class ComputeBackend:
-    """Executes operation payloads against the runtime's block storage."""
+    """Executes operation payloads against the runtime's block storage.
+
+    A backend may also run several ops of one worker batch as one
+    launch: :meth:`split_batch` picks them out as launch groups
+    (:class:`LaunchGroup`) and :meth:`prepare_group` readies each.  The
+    ops of one batch were ready together, so they never conflict and may
+    run in any order."""
 
     name = "abstract"
 
@@ -79,6 +94,32 @@ class ComputeBackend:
 
     def execute(self, op: OperationNode) -> None:
         raise NotImplementedError
+
+    def split_batch(self, ops: list) -> tuple[list, list]:
+        """(launch groups, the ops left for :meth:`execute`, in order)."""
+        return [], list(ops)
+
+    def prepare_group(self, group: "LaunchGroup"):
+        """The host's work for one group (checks, the kernel's table);
+        returns the call that launches it, which the executor times on
+        the device apart from this work."""
+        raise NotImplementedError
+
+
+@dataclass
+class LaunchGroup:
+    """Ops of one worker batch that run as one launch: ``items[i]`` is
+    what the launch needs of ``ops[i]``, ``sizes[i]`` its element count
+    (the share of the launch's time it is charged)."""
+
+    ops: list
+    items: list
+    sizes: list
+    weight: float
+
+    def subset(self, keep: list) -> "LaunchGroup":
+        return LaunchGroup([self.ops[i] for i in keep], [self.items[i] for i in keep],
+                           [self.sizes[i] for i in keep], self.weight)
 
 
 class TorchBackend(ComputeBackend):
@@ -90,16 +131,21 @@ class TorchBackend(ComputeBackend):
       primitives through ``eval_tree``) in NumPy's loop dtypes,
       reductions, fills, combines, and matmuls through ``torch.matmul``.
     * Fused 5-point stencil maps ``w * ((((x0+x1)+x2)+x3)+x4)`` go to
-      the hand-written ``stencil5_block`` kernel
-      (:mod:`repro_torch.kernels.stencil`) when NumPy would compute them
-      in the blocks' own float32/float64 dtype; the kernel accumulates
-      in that dtype and in that order, so the result is bit-identical
-      to the NumPy interpreter.
+      the hand-written stencil kernel (:mod:`repro_torch.kernels.stencil`)
+      when NumPy would compute them in the blocks' own float32/float64
+      dtype and store them in that dtype; the kernel accumulates in that
+      dtype and in that order, so the result is bit-identical to the
+      NumPy interpreter.  Those of one worker batch with one dtype and
+      weight go to ``stencil5_group`` together (:meth:`split_batch`): one
+      launch, each result written straight into its output block.
     """
 
     name = "torch"
 
     _STENCIL_DTYPES = (np.dtype(np.float32), np.dtype(np.float64))
+    # (block dtype, weight's operand key) -> whether NumPy's multiply loop
+    # stays in the block dtype (a pure function of the key)
+    _stencil_loop_ok: dict = {}
 
     @staticmethod
     def _stencil5_weight(tree) -> Optional[object]:
@@ -129,36 +175,85 @@ class TorchBackend(ComputeBackend):
         return const[1]
 
     def execute(self, op: OperationNode) -> None:
-        p = op.payload
-        if isinstance(p, MapPayload) and self._exec_stencil5(p):
-            return
-        execute_payload(p, self.storage, self.scratch)
+        match = self._stencil5_args(op.payload)
+        if match is None:
+            execute_payload(op.payload, self.storage, self.scratch)
+        else:
+            stencil5_group([match[:2]], weight=match[2])
 
-    def _exec_stencil5(self, p: MapPayload) -> bool:
-        if p.ufunc.tree is None or len(p.args) != 5:
-            return False
+    def _view(self, ref) -> torch.Tensor:
+        """``resolve_ref`` of a tensor reference; a 2-D fragment of a 2-D
+        block by ``as_strided`` (the same view as slicing, at half the
+        host cost: the stencil path makes six a fragment)."""
+        if ref[0] == "b":
+            _, bid, frag = ref
+            blk = self.storage[(bid, frag.block)]
+            if blk.ndim == 2 and len(frag.local) == 2:
+                (s0, e0, t0), (s1, e1, t1) = frag.local
+                (n0, n1), (r0, r1) = blk.shape, blk.stride()
+                if 0 <= s0 <= e0 <= n0 and 0 <= s1 <= e1 <= n1:
+                    return blk.as_strided((-(-(e0 - s0) // t0), -(-(e1 - s1) // t1)),
+                                          (r0 * t0, r1 * t1),
+                                          blk.storage_offset() + s0 * r0 + s1 * r1)
+        return resolve_ref(ref, self.storage, self.scratch)
+
+    def _stencil5_args(self, p) -> Optional[tuple]:
+        """(the five operand views, the output view, the weight) of a
+        payload the stencil kernel takes, else None."""
+        if not isinstance(p, MapPayload) or p.ufunc.tree is None or len(p.args) != 5:
+            return None
         if any(r[0] == "c" for r in p.args):
-            return False
+            return None
         w = self._stencil5_weight(p.ufunc.tree)
         if w is None:
-            return False
-        xs = [resolve_ref(r, self.storage, self.scratch) for r in p.args]
+            return None
+        xs = [self._view(r) for r in p.args]
         x0 = xs[0]
         if x0.ndim != 2 or any(
             x.shape != x0.shape or x.dtype != x0.dtype for x in xs
         ):
-            return False
-        dt = to_numpy_dtype(x0.dtype)
-        # the kernel computes in the blocks' dtype: take it only where
-        # NumPy would too (a strong np.float64 weight promotes float32)
-        if dt not in self._STENCIL_DTYPES:
-            return False
-        if loop_dtypes("multiply", (dt, operand_key(w)))[1] != dt:
-            return False
-        res = stencil5_block(*xs, weight=float(w))
-        blk = self.storage[(p.out_base, p.out_frag.block)]
-        blk[p.out_frag.slices] = res
-        return True
+            return None
+        key = (x0.dtype, operand_key(w))
+        ok = self._stencil_loop_ok.get(key)
+        if ok is None:
+            dt = to_numpy_dtype(x0.dtype)
+            # the kernel computes in the blocks' dtype: take it only where
+            # NumPy would too (a strong np.float64 weight promotes float32)
+            ok = (dt in self._STENCIL_DTYPES
+                  and loop_dtypes("multiply", (dt, key[1]))[1] == dt)
+            self._stencil_loop_ok[key] = ok
+        if not ok:
+            return None
+        # the kernel writes in place: the output view must be the
+        # operands' shape and dtype (else the store would broadcast or cast)
+        out = self._view(("b", p.out_base, p.out_frag))
+        if out.shape != x0.shape or out.dtype != x0.dtype:
+            return None
+        return xs, out, float(w)
+
+    def split_batch(self, ops: list) -> tuple[list, list]:
+        """Group the batch's stencil ops by dtype, device and weight."""
+        groups: dict = {}
+        rest = []
+        for op in ops:
+            try:
+                match = self._stencil5_args(op.payload)
+            except Exception:  # execute() raises it again, failing only this op's drain
+                match = None
+            if match is None:
+                rest.append(op)
+                continue
+            xs, out, w = match
+            g = groups.setdefault((out.dtype, out.device, w), LaunchGroup([], [], [], w))
+            g.ops.append(op)
+            g.items.append((xs, out))
+            g.sizes.append(out.numel())
+        return list(groups.values()), rest
+
+    def prepare_group(self, group: LaunchGroup):
+        if group.items[0][1].device.type == "cuda":
+            return functools.partial(prepare_stencil5_group(group.items).launch, group.weight)
+        return functools.partial(stencil5_group, group.items, weight=group.weight)
 
 
 register_backend("torch", TorchBackend)
@@ -175,6 +270,90 @@ def make_backend(name, storage: dict, scratch: dict) -> ComputeBackend:
 # ---------------------------------------------------------------------------
 # The asynchronous executor
 # ---------------------------------------------------------------------------
+
+
+class _DeviceClock:
+    """Device time of compute payloads on one CUDA device.
+
+    Every worker launches on the device's current stream, so the stream
+    runs payloads one after another.  :meth:`timed` records an event
+    pair around one payload (or grouped launch) under ``stream_lock``,
+    which the executor's transfers take too: no other launch lands
+    between a pair's events, so the pairs' times add up to the device's
+    busy time and never count a kernel twice.  A pair's time is the
+    device time from its first to its last kernel, with any gap the host
+    leaves in between (on an idle device, the launch latency of the
+    first).  Work the recording thread launches outside the executor
+    (scatter, gather) is not held off and may fall inside a pair.
+
+    Pairs are kept per worker until :meth:`settle` (at the end of each
+    drain) resolves them; a worker that holds more than ``MAX_PENDING``
+    resolves its oldest first, waiting for the device if it must, so a
+    long drain keeps a bounded number of live events."""
+
+    MAX_PENDING = 64
+
+    def __init__(self, device: torch.device, nworkers: int):
+        self.device = device
+        self.stream_lock = threading.Lock()
+        self._lock = threading.Lock()  # guards _pending, _free and the accounting
+        self._pending = [collections.deque() for _ in range(nworkers)]
+        self._free: list = []
+
+    def _event(self):
+        with self._lock:
+            if self._free:
+                return self._free.pop()
+        return torch.cuda.Event(enable_timing=True)
+
+    def timed(self, fn) -> tuple:
+        """Run ``fn`` between the two events of a pair; returns the pair."""
+        start, end = self._event(), self._event()
+        stream = torch.cuda.current_stream(self.device)
+        with self.stream_lock:
+            start.record(stream)
+            try:
+                fn()
+            finally:
+                end.record(stream)
+        return start, end
+
+    def add(self, rank: int, pair: tuple, wstats: WorkerStats, shares: list) -> None:
+        """Keep ``pair`` until settled: its time goes to ``wstats`` and,
+        split by ``shares`` (``(drain stats, fraction)``), to each op's
+        drain."""
+        with self._lock:
+            q = self._pending[rank]
+            q.append((*pair, wstats, shares))
+            oldest = q.popleft() if len(q) > self.MAX_PENDING else None
+        if oldest is not None:
+            oldest[1].synchronize()
+            with self._lock:
+                self._resolve(oldest)
+
+    def _resolve(self, rec) -> None:
+        """Account one complete pair (call with ``_lock`` held).  An
+        event pair that cannot be resolved raises."""
+        start, end, wstats, shares = rec
+        t = start.elapsed_time(end) / 1e3
+        wstats.compute_busy += t
+        for dstats, share in shares:
+            dstats.compute_busy += t * share
+        self._free += (start, end)
+
+    def settle(self) -> None:
+        """Wait for the device to finish everything launched so far and
+        account every pair recorded before."""
+        with self._lock:
+            recs = [rec for q in self._pending for rec in q]
+            for q in self._pending:
+                q.clear()
+        fin = torch.cuda.Event()
+        fin.record(torch.cuda.current_stream(self.device))
+        fin.synchronize()
+        with self._lock:
+            for rec in recs:
+                self._resolve(rec)
 
 
 class _Drain:
@@ -263,9 +442,14 @@ class AsyncExecutor:
         steal: bool = True,
         steal_threshold: int = 4,
         steal_latency: float = 1e-4,
+        device=None,
     ):
         self.nworkers = nworkers
         self.backend = make_backend(backend, storage, scratch)
+        # blocks on a CUDA device: compute is timed by device events, not
+        # by the host's thread time (a launch returns once it is queued)
+        device = torch.device("cpu" if device is None else device)
+        self._clock = _DeviceClock(device, nworkers) if device.type == "cuda" else None
         # a channel instance may be shared across flushes (the owner closes
         # it); a name means this executor owns the channel's lifecycle
         self._owns_channel = isinstance(channel, str)
@@ -279,7 +463,9 @@ class AsyncExecutor:
         self.steal_latency = max(0.0, steal_latency)
         # EWMA of per-op compute grain (seconds) — the τ in the 1805.01768
         # gate "move only if n·τ ≥ steal latency".  Starts at the steal
-        # latency so the first steals are allowed until measured.
+        # latency so the first steals are allowed until measured.  Host
+        # time, also on a GPU: it is weighed against a host-side steal
+        # latency, and stealing moves host launch work.
         self._grain_ewma = max(self.steal_latency, 1e-6)
         self.workers = [
             Worker(
@@ -323,7 +509,11 @@ class AsyncExecutor:
 
     # -- transfer execution (runs on progress threads / workers) ----------
     def _exec_comm(self, op: OperationNode) -> None:
-        execute_payload(op.payload, self.backend.storage, self.backend.scratch)
+        if self._clock is None:
+            execute_payload(op.payload, self.backend.storage, self.backend.scratch)
+            return
+        with self._clock.stream_lock:  # never inside a compute payload's event pair
+            execute_payload(op.payload, self.backend.storage, self.backend.scratch)
 
     # -- work stealing -----------------------------------------------------
     def _steal_for(self, thief: Worker) -> Optional[list[OperationNode]]:
@@ -434,8 +624,11 @@ class AsyncExecutor:
         the pop) and complete it through a single dependency sweep.  A
         batch may mix ops from several concurrent drains; per-op stats
         are binned into each op's own drain, and a failing op kills only
-        its drain — the rest of the batch still executes."""
+        its drain — the rest of the batch still executes.  The compute
+        ops go to the backend's launch groups (:meth:`ComputeBackend.
+        split_batch`) first, then one by one in the batch's order."""
         completed: list[OperationNode] = []
+        compute: list[OperationNode] = []
         col = _obs.CURRENT
         rank = worker.rank
         for op in ops:
@@ -473,31 +666,77 @@ class AsyncExecutor:
                     col.wait_end(rank, "channel", op.uid)
                 completed.append(op)
                 continue
-            # compute is accounted in per-thread CPU time: wall durations on
-            # an oversubscribed machine include GIL/scheduler preemption,
-            # which would inflate "busy" exactly when contention is worst
-            if col is not None:
+            compute.append(op)
+        if compute:
+            groups, rest = self.backend.split_batch(compute)
+            for group in groups:
+                # a failed unit before this one may have ended some drains
+                keep = [i for i, op in enumerate(group.ops) if not op._drain.finished]
+                if len(keep) < len(group.ops):
+                    group = group.subset(keep)
+                if group.ops:
+                    self._run_compute(group.ops, group.sizes, worker, col, completed,
+                                      prepare=functools.partial(self.backend.prepare_group,
+                                                                group))
+            for op in rest:
+                if not op._drain.finished:
+                    self._run_compute((op,), (1,), worker, col, completed,
+                                      run=functools.partial(self.backend.execute, op))
+        if completed:
+            self._ops_done(completed)
+
+    def _run_compute(self, ops, sizes, worker: Worker, col, completed: list, *,
+                     prepare=None, run=None) -> None:
+        """Run one compute unit — one payload (``run``), or one grouped
+        launch of several (``prepare()`` returns its launch) — and
+        account it to each of its ops, split by ``sizes`` (element
+        counts).  ``host_busy`` is per-thread CPU time: wall durations on
+        an oversubscribed machine include GIL/scheduler preemption, which
+        would inflate "busy" exactly when contention is worst.
+        ``compute_busy`` is that same time on the CPU, and on a GPU the
+        device time of the launch (its event pair, resolved later; a
+        group's host preparation stays outside the pair).  A failing unit
+        kills the drain of each of its ops."""
+        rank = worker.rank
+        if col is not None:
+            for op in ops:
                 col.compute_start(op.uid, rank)
-            t0 = time.thread_time()
-            try:
-                self.backend.execute(op)
-            except BaseException as exc:
-                if col is not None:
+        t0 = time.thread_time()
+        try:
+            if run is None:
+                run = prepare()
+            if self._clock is None:
+                run()
+            else:
+                pair = self._clock.timed(run)
+        except BaseException as exc:
+            if col is not None:
+                for op in ops:
                     col.compute_end(op.uid, rank)
+            for drain in {id(op._drain): op._drain for op in ops}.values():
                 self._fail_drain(drain, exc)
-                continue
-            dt = time.thread_time() - t0
-            worker.stats.compute_busy += dt
+            return
+        dt = time.thread_time() - t0
+        total = sum(sizes)
+        shares = [n / total for n in sizes] if total else [1 / len(ops)] * len(ops)
+        for op, share in zip(ops, shares):
+            dstats = op._drain.procs[rank]
+            worker.stats.host_busy += dt * share
             worker.stats.n_compute += 1
-            dstats.compute_busy += dt
+            dstats.host_busy += dt * share
             dstats.n_compute += 1
+            if self._clock is None:
+                worker.stats.compute_busy += dt * share
+                dstats.compute_busy += dt * share
             # unlocked EWMA: a heuristic input for the steal gate only
-            self._grain_ewma += 0.2 * (dt - self._grain_ewma)
+            self._grain_ewma += 0.2 * (dt * share - self._grain_ewma)
+        if self._clock is not None:
+            self._clock.add(rank, pair, worker.stats,
+                            [(op._drain.procs[rank], share) for op, share in zip(ops, shares)])
+        for op in ops:
             if col is not None:
                 col.compute_end(op.uid, rank)
             completed.append(op)
-        if completed:
-            self._ops_done(completed)
 
     # -- completion (worker batches and channel callbacks land here) -------
     def _ops_done(self, ops) -> None:
@@ -635,6 +874,16 @@ class AsyncExecutor:
         col = _obs.CURRENT
         if col is not None:
             col.drain_end(drain.tag)
+        if self._clock is not None:
+            # the makespan ends when the device has finished the drain's
+            # work, and its compute is known only then
+            try:
+                self._clock.settle()
+            except BaseException as err:
+                if exc is None:
+                    exc = err
+                else:
+                    exc.add_note(f"device compute timing could not be settled: {err!r}")
         elapsed = time.perf_counter() - drain.t0
         if exc is not None:
             drain.fut.set_exception(exc)

@@ -19,12 +19,23 @@ __all__ = ["WorkerStats", "WaitStats"]
 
 @dataclass
 class WorkerStats:
-    """Per-worker accounting (mirrors ``ProcStats``).  ``compute_busy``
-    is per-thread CPU time (GIL/scheduler preemption excluded);
-    ``comm_busy`` and ``idle`` are wall-clock — being blocked is the
-    thing measured."""
+    """Per-worker accounting (mirrors ``ProcStats``).
 
-    compute_busy: float = 0.0  # executing compute payloads (CPU time)
+    * ``compute_busy``: the time compute payloads take.  With blocks on
+      the CPU it is per-thread CPU time around each payload (GIL and
+      scheduler preemption excluded), as in the reference.  With blocks
+      on a CUDA device it is device time: a CUDA event pair around each
+      payload or grouped launch on the stream it launches on, split
+      across a group's ops by element count.  The executor serialises
+      the pairs, so their sum over all workers is the device's busy time.
+    * ``host_busy``: per-thread CPU time around each payload on either
+      device — on a GPU the host's cost of queueing it (a launch returns
+      once it is queued).  Equal to ``compute_busy`` on the CPU.
+    * ``comm_busy`` and ``idle`` are wall-clock — being blocked is the
+      thing measured."""
+
+    compute_busy: float = 0.0  # executing compute payloads (see above)
+    host_busy: float = 0.0  # host CPU time spent launching compute payloads
     comm_busy: float = 0.0  # blocked inside channel ops (blocking mode)
     idle: float = 0.0  # ready queue empty, waiting on dependencies
     n_compute: int = 0
@@ -35,6 +46,7 @@ class WorkerStats:
 
     def absorb(self, other: "WorkerStats") -> None:
         self.compute_busy += other.compute_busy
+        self.host_busy += other.host_busy
         self.comm_busy += other.comm_busy
         self.idle += other.idle
         self.n_compute += other.n_compute
@@ -48,6 +60,7 @@ class WorkerStats:
         each drain's stats are a delta, not the lifetime totals."""
         return WorkerStats(
             compute_busy=self.compute_busy,
+            host_busy=self.host_busy,
             comm_busy=self.comm_busy,
             idle=self.idle,
             n_compute=self.n_compute,
@@ -61,6 +74,7 @@ class WorkerStats:
         """Per-drain delta: current totals minus a ``snapshot()``."""
         return WorkerStats(
             compute_busy=self.compute_busy - base.compute_busy,
+            host_busy=self.host_busy - base.host_busy,
             comm_busy=self.comm_busy - base.comm_busy,
             idle=self.idle - base.idle,
             n_compute=self.n_compute - base.n_compute,
@@ -100,6 +114,11 @@ class WaitStats:
     @property
     def total_compute(self) -> float:
         return sum(p.compute_busy for p in self.procs)
+
+    @property
+    def total_host(self) -> float:
+        """Σ host CPU time spent launching compute (``host_busy``)."""
+        return sum(p.host_busy for p in self.procs)
 
     @property
     def wait_fraction(self) -> float:

@@ -47,6 +47,7 @@ from repro_torch.kernels.build import BuiltLibrary, build_library
 __all__ = [
     "flash_attention",
     "flash_attention_plain",
+    "first_keyless_row",
     "BF16_REL_TOL",
     "bf16_rel_err",
     "launches",
@@ -183,6 +184,19 @@ def _key_range(q0: int, q1: int, Sk: int, sk_valid: int, causal: bool,
     return begin - begin % block_k, end
 
 
+def first_keyless_row(Sq: int, sk_valid: int, window: Optional[int]) -> int:
+    """The first query row with no valid key: rows from it on attend to
+    nothing.  Key j is valid for row i when ``j < sk_valid``, ``j <= i``
+    if causal and ``i - j < window`` if windowed; causal or not, a row
+    i >= 0 has one exactly when ``sk_valid > 0`` and, with a window,
+    ``sk_valid > i - window + 1``."""
+    if sk_valid == 0:
+        return 0
+    if window is None:
+        return Sq
+    return min(Sq, sk_valid + window - 1)
+
+
 def flash_attention_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -199,7 +213,8 @@ def flash_attention_plain(
     softmax over the key tiles it can see, in f32.  The default tiles are
     the FMA kernel's and the Pallas kernel's; ``BLOCK_Q`` and ``BLOCK_K``
     give the wgmma kernel's order.  Live memory is O(block_q · block_k)
-    scores per head, never Sq × Sk."""
+    scores per head, never Sq × Sk.  A row with no valid key is 0, as
+    ``flash_attention`` gives it."""
     sk_valid = _check(q, k, v, sk_valid)
     B, Sq, H, d = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -236,6 +251,7 @@ def flash_attention_plain(
             m = m_new
         o = acc / torch.clamp_min(l, 1e-30)[..., None]
         out[:, q0:q1] = o.permute(0, 3, 1, 2, 4).reshape(B, nq, H, d).to(q.dtype)
+    out[:, first_keyless_row(Sq, sk_valid, window):] = 0
     return out
 
 
@@ -275,7 +291,14 @@ def flash_attention(
     tensors and ``scale > 0``).  Query row i sits at position i whatever
     Sk is; key j is valid when ``j < sk_valid`` (default Sk), ``j <= i``
     if ``causal`` and ``i - j < window`` if ``window`` is set.  Returns
-    ``[B, Sq, H, d]`` in q's dtype."""
+    ``[B, Sq, H, d]`` in q's dtype.
+
+    A query row with no valid key (``sk_valid`` 0, or with a window the
+    rows from ``sk_valid + window - 1`` on: ``first_keyless_row``) is 0
+    on every route and at every tile size.  The Pallas kernel returns
+    there the mean of v over the masked keys of the tiles it ran, which
+    depends on its tiles; the port does not copy that.  A model's
+    prefill never makes such a row (a causal row always sees key 0)."""
     sk_valid = _check(q, k, v, sk_valid)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -309,4 +332,7 @@ def flash_attention(
     if rc != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed: {_launch_error(rc)}")
     _count(_ROUTE[q.dtype])
+    keyless = first_keyless_row(Sq, sk_valid, window)
+    if keyless < Sq:
+        out[:, keyless:] = 0
     return out

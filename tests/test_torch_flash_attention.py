@@ -93,7 +93,7 @@ def test_plain_masks_match_pallas_kernel_and_ref(causal, window):
     assert _err(got, ref) < 5e-4
 
 
-# every query row keeps a valid key (a row with none is left undefined)
+# every query row keeps a valid key (rows with none: test_rows_with_no_valid_key_are_zero)
 @pytest.mark.parametrize("sk_valid,window", [(1, None), (50, 30), (77, 30)])
 def test_plain_sk_valid_masks_the_key_tail(sk_valid, window):
     """Keys at or past ``sk_valid`` never count: the same as attending the
@@ -105,6 +105,49 @@ def test_plain_sk_valid_masks_the_key_tail(sk_valid, window):
     ref = flash_attention_ref(jq, jk[:, :sk_valid], jv[:, :sk_valid], causal=True,
                               window=window)
     assert _err(got, ref) < 5e-4
+
+
+# (causal, window, sk_valid) over 256 queries and 256 keys, each with
+# query rows that have no valid key
+KEYLESS_CASES = [(True, 30, 50), (False, 40, 100), (True, None, 0), (True, 64, 1)]
+
+
+@pytest.mark.parametrize("causal,window,sk_valid", KEYLESS_CASES)
+def test_rows_with_no_valid_key_are_zero(causal, window, sk_valid):
+    """A query row whose keys are all masked is 0: in the plain version
+    at its default tiles and at the wgmma kernel's order, and through
+    the wrapper.  ``first_keyless_row`` agrees with the mask itself.
+    The Pallas kernel returns there the mean of v over the masked keys
+    of the tiles it ran, which moves with its tiles: a known, intended
+    difference.  The other rows still match it."""
+    from repro_torch.kernels.flash_attention.ops import first_keyless_row
+
+    Sq = Sk = 256  # the Pallas kernel takes whole tiles of 64 and 128
+    (jq, jk, jv), (tq, tk, tv) = _inputs(9, [(1, Sq, 2, 32), (1, Sk, 1, 32), (1, Sk, 1, 32)])
+    i, j = np.arange(Sq)[:, None], np.arange(Sk)[None, :]
+    ok = (j < sk_valid) & ((i >= j) if causal else True)
+    if window is not None:
+        ok = ok & (i - j < window)
+    keyless = first_keyless_row(Sq, sk_valid, window)
+    assert 0 <= keyless < Sq
+    assert list(np.flatnonzero(~ok.any(axis=1))) == list(range(keyless, Sq))
+    kw = dict(causal=causal, window=window, sk_valid=sk_valid)
+    outs = [flash_attention_plain(tq, tk, tv, **kw),
+            flash_attention_plain(tq, tk, tv, **kw, block_q=BLOCK_Q, block_k=BLOCK_K),
+            flash_attention(tq, tk, tv, **kw)]
+    pallas = {}
+    for tile in (64, 128):
+        pallas[tile] = np.asarray(pallas_kernel(
+            jq.transpose(0, 2, 1, 3), jnp.repeat(jk, 2, axis=2).transpose(0, 2, 1, 3),
+            jnp.repeat(jv, 2, axis=2).transpose(0, 2, 1, 3), causal=causal, window=window,
+            block_q=tile, block_k=tile, sk_valid=sk_valid, interpret=True,
+        ).transpose(0, 2, 1, 3))
+    for got in outs:
+        assert torch.equal(got[:, keyless:], torch.zeros_like(got[:, keyless:]))
+        if keyless:
+            assert _err(got[:, :keyless], pallas[64][:, :keyless]) < 5e-4
+    if sk_valid:  # with no valid key at all the Pallas kernel runs no tile: 0 too
+        assert np.abs(pallas[64][:, keyless:]).max() > 0.05
 
 
 def test_plain_block_sizes_do_not_change_the_result():

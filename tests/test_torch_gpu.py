@@ -78,6 +78,95 @@ def test_wrappers_raise_on_cuda_inputs_they_do_not_take(cuda):
         ks.stencil5_block(x, x, x, x, x.cpu(), weight=0.2)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_stencil5_group_kernel_equals_plain(cuda, dtype):
+    """The grouped kernel, each case of ``chip_smoke.py`` phase 2 one
+    call, against its plain version (torch.equal): the generic loads on
+    strided slivers and fragments, the shared-memory route on shifted
+    views of one block, a staged aliased output, and a group split over
+    two launches."""
+    import chip_smoke
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for name, frags in chip_smoke.stencil_group_cases(torch, g, dtype):
+        # the plain version first, on the operands as they are now, into
+        # fresh tensors (an aliased output would change its own operands)
+        want = [ks.stencil5_block_plain(*xs, weight=0.2) for xs, _ in frags]
+        ks.reset_launches()
+        ks.stencil5_group(frags, weight=0.2)
+        torch.cuda.synchronize()
+        for (xs, out), w in zip(frags, want):
+            assert torch.equal(out, w), name
+        n_launch = -(-len(frags) // ks.GROUP_MAX_FRAGS)
+        assert ks.launches["stencil5_block"] == n_launch, name
+        assert sum(ks.fragment_shapes.values()) == len(frags), name
+        assert sum(ks.staged_copies.values()) == (name == "aliased output"), name
+
+
+def test_device_time_shows_in_compute_busy(cuda):
+    """A payload of known device time (``torch.cuda._sleep``, about 5
+    ms) counts in compute_busy, and not in host_busy, which is the
+    host's cost of queueing it; the makespan ends when the device has
+    run them all."""
+    from repro_torch.core.graph import COMPUTE, AccessNode, DependencySystem, OperationNode
+    from repro_torch.exec import AsyncExecutor, ComputeBackend
+
+    torch.cuda._sleep(1000)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(10_000_000)
+    b.record()
+    b.synchronize()
+    cycles = int(10_000_000 * 5.0 / a.elapsed_time(b))  # about 5 ms
+
+    class Sleep(ComputeBackend):
+        def execute(self, op):
+            torch.cuda._sleep(cycles)
+
+    n_ops = 12
+    deps = DependencySystem()
+    for i in range(n_ops):
+        op = OperationNode(COMPUTE, None, procs=(i % 4,))
+        op.add_access(AccessNode(("b", i), None, write=True))
+        deps.insert(op)
+    ex = AsyncExecutor(4, {}, {}, backend=Sleep({}, {}), device="cuda")
+    try:
+        st = ex.run(deps)
+    finally:
+        ex.close()
+    expect = n_ops * 5e-3
+    assert st.n_compute_ops == n_ops
+    assert 0.85 * expect <= st.total_compute <= 1.3 * expect, st.total_compute
+    assert st.total_host < 0.2 * expect, st.total_host
+    assert st.makespan >= 0.95 * st.total_compute
+
+
+def test_flash_attention_rows_without_keys_are_zero(cuda):
+    """The bf16 (wgmma) and f32 kernels return 0 for a query row whose
+    keys are all masked, as the plain version does at both tile orders
+    (tests/test_torch_flash_attention.py), and agree with it elsewhere."""
+    from repro_torch.kernels.flash_attention.ops import BLOCK_K, BLOCK_Q, first_keyless_row
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for dtype in (torch.bfloat16, torch.float32):
+        for causal, window, sk_valid in [(True, 30, 50), (False, 40, 100), (True, None, 0),
+                                         (True, 64, 1)]:
+            q = torch.randn(1, 256, 2, 64, device=cuda, generator=g).to(dtype)
+            k = torch.randn(1, 256, 1, 64, device=cuda, generator=g).to(dtype)
+            v = torch.randn(1, 256, 1, 64, device=cuda, generator=g).to(dtype)
+            kw = dict(causal=causal, window=window, sk_valid=sk_valid)
+            got = fa.flash_attention(q, k, v, **kw)
+            want = fa.flash_attention_plain(q, k, v, **kw, block_q=BLOCK_Q, block_k=BLOCK_K)
+            torch.cuda.synchronize()
+            first = first_keyless_row(256, sk_valid, window)
+            assert first < 256
+            assert torch.equal(got[:, first:], torch.zeros_like(got[:, first:]))
+            assert torch.equal(want[:, first:], torch.zeros_like(want[:, first:]))
+            if first:
+                e = (got[:, :first].double() - want[:, :first].double()).abs().max()
+                assert e < FLASH_TOL[dtype], (dtype, kw, e)
+
+
 @pytest.mark.parametrize("app", list(SMALL))
 @pytest.mark.parametrize("fusion", [False, True])
 def test_apps_on_gpu_match_numpy_interpreter(cuda, app, fusion):

@@ -77,24 +77,61 @@ def test_port_matches_numpy_backend(app):
     assert st.n_compute_ops > 0 and 0.0 <= st.wait_fraction <= 1.0
 
 
-def test_fused_stencil_bit_identical_through_stencil5(monkeypatch):
-    """Fused sweeps route through the stencil5_block wrapper (its plain
-    version on the CPU) and stay bit-identical to the interpreter."""
+def _spy_stencil5_group(monkeypatch) -> list:
+    """Record each stencil5_group call of the backend as (fragment
+    shapes, weight), and let it run."""
     import repro_torch.exec.backend as backend
 
     calls = []
+    real = backend.stencil5_group
 
-    def spy(*xs, weight):
-        calls.append((xs[0].shape, weight))
-        return apps_stencil5(*xs, weight=weight)
+    def spy(frags, *, weight):
+        calls.append(([out.shape for _, out in frags], weight))
+        return real(frags, weight=weight)
 
-    apps_stencil5 = backend.stencil5_block
-    monkeypatch.setattr(backend, "stencil5_block", spy)
+    monkeypatch.setattr(backend, "stencil5_group", spy)
+    return calls
+
+
+def test_fused_stencil_bit_identical_through_stencil5(monkeypatch):
+    """Fused sweeps route through the stencil5_group wrapper (its plain
+    version on the CPU) and stay bit-identical to the interpreter."""
+    calls = _spy_stencil5_group(monkeypatch)
     _, got = _port("jacobi_stencil", fusion=True)
     _, want = _ref("jacobi_stencil", flush_backend="async",
                    exec_backend="numpy", fusion=True)
     assert np.array_equal(got, want)
     assert calls and all(w == 0.2 for _, w in calls)
+
+
+def test_stencil_fragments_grouped_per_worker_batch(monkeypatch):
+    """A worker batch's stencil fragments go to the kernel in one call
+    (several fragments a call, fewer calls than fragments), written in
+    place, and the run stays bit-identical to the NumPy interpreter; an
+    op run on its own (``execute``) is a group of one."""
+    from repro_torch.exec import TorchBackend
+
+    calls = _spy_stencil5_group(monkeypatch)
+    _, got = _port("jacobi_stencil", fusion=True)
+    sizes = [len(shapes) for shapes, _ in calls]
+    assert max(sizes) > 1 and len(calls) < sum(sizes), sizes
+    _, want = _ref("jacobi_stencil", flush_backend="async",
+                   exec_backend="numpy", fusion=True)
+    assert np.array_equal(got, want)
+    monkeypatch.setattr(TorchBackend, "split_batch", lambda self, ops: ([], list(ops)))
+    calls.clear()
+    _, single = _port("jacobi_stencil", fusion=True)
+    assert calls and all(len(shapes) == 1 for shapes, _ in calls)
+    assert np.array_equal(single, want)
+
+
+def test_cpu_compute_busy_is_thread_time():
+    """On the CPU compute_busy is the thread-time reading, as in the
+    reference: it equals host_busy, worker by worker."""
+    st, _ = _port("jacobi_stencil", fusion=True)
+    assert st.total_compute > 0
+    for p in st.procs:
+        assert p.compute_busy == p.host_busy
 
 
 @pytest.mark.parametrize("app", ["jacobi_stencil", "black_scholes", "lbm3d"])
