@@ -5,13 +5,15 @@
 
 Phases, each asserted (any failure exits non-zero):
 
-1. build the CUDA kernels from ``src/repro_torch/kernels/*/csrc``, one
-   nvcc per source, all started together; print ptxas's report of each
-   kernel (registers, shared memory, spills), the counts of ``HGMMA``
-   and ``UTMALDG`` instructions in the flash library's SASS (its bf16
-   kernel runs on wgmma and TMA) and of ``HMMA`` and ``LDGSTS`` in the
-   SSD scan library's (its bf16 kernel runs on mma.sync and cp.async),
-   each asserted above 0;
+1. build the CUDA kernels and the stream gate from
+   ``src/repro_torch/kernels/*/csrc``, one nvcc per source, all started
+   together; print ptxas's report of each kernel (registers, shared
+   memory, spills), the counts of ``HGMMA`` and ``UTMALDG`` instructions
+   in the flash library's SASS (its bf16 kernel runs on wgmma and TMA),
+   of ``HMMA`` and ``LDGSTS`` in the SSD scan library's (mma.sync and
+   cp.async) and of ``HMMA`` and ``UTMALDG`` in the wkv library's
+   (mma.sync and TMA), each asserted above 0, and ptxas's registers and
+   spills of ``wkv6_tc_kernel``;
 2. hold every kernel to its plain PyTorch version on the card (the
    stencil kernels, ``torch.equal``: ``stencil5_group`` on strided
    slivers, the shared-memory route, an aliased output and a group over
@@ -26,10 +28,14 @@ Phases, each asserted (any failure exits non-zero):
    must equal a sequential host-NumPy float64 stencil bit for bit, and
    every kernel of the path must have been launched, the stencil kernel
    fewer times than it computed fragments, with no copy after one.
-   Prints the drain's device-timed ``compute_busy``, ``host_busy``, the
-   device busy share, a makespan that ends at device completion and
-   ``wait_fraction``; then runs it once more under ``torch.profiler`` for
-   the device time of its kernels and copies;
+   Prints the drain's device-timed ``compute_busy`` (gated event pairs),
+   ``host_busy``, the device busy share, a makespan that ends at device
+   completion and ``wait_fraction``; then runs it once more under
+   ``torch.profiler`` for the device time of its kernels and copies (the
+   gate kernels apart) and asserts the pairs' sum within 1.5 x that plus
+   5 us a pair; prints the pairs, ``gate_timeouts`` (each timeout named
+   with its payload's kind and cause) and the longest a payload held the
+   gate;
 4. the paper's own regime (4096², 512² blocks, 16 processes) under
    ``sync="demand"`` and ``sync="barrier"``;
 5. the overlap probe of examples/stencil_latency_hiding.py (256², 8
@@ -61,7 +67,7 @@ Phases, each asserted (any failure exits non-zero):
     layers ``MMMMMH``);
 11. rwkv6-3b served the same way (32 layers, d_model 2560, 40 heads of
     64, d_ff 8960, vocab 65536, untied): exactly 32 wkv launches in
-    prefill, none in decode;
+    prefill (all 32 on the tensor-core kernel), none in decode;
 12. rwkv6's kernel against its torch twin, as phase 8 (f32: 2 layers);
 13. the bf16 flash kernel's time at both of its path shapes beside its
     bound and its plain version's time, with
@@ -70,12 +76,15 @@ Phases, each asserted (any failure exits non-zero):
     shape, with ``is_causal=True`` at zamba2's;
 14. the SSD scan (bf16: the tensor-core kernel, with ptxas's registers
     and spills) and wkv kernels' times at their paths' shapes beside
-    their bounds and their plain versions' times.
+    their bounds and their plain versions' times, wkv on both routes
+    (bf16: the tensor-core kernel, f32: the FMA kernel).
 
 Phase 2 also holds the SSD scan and wkv kernels to their plain versions
 (f32 and the paths' bf16/f32 mix; ragged lengths, initial states,
-several heads, and each path's own shape), each SSD launch asserted on
-its dtype's kernel: bf16 on the tensor-core kernel, f32 on FMA.
+several heads, and each path's own shape; for wkv also a strong-decay
+draw with some w = 0, and a bf16 y within ``bf16_rel_err`` 2^-6 of the
+plain version in f32), each launch asserted on its dtype's kernel: bf16
+on the tensor-core kernel, f32 on FMA.
 
 The third-to-last line of output is the JSON ``kernels`` record, the
 second-to-last the card's name and power limit, and the last line
@@ -129,6 +138,11 @@ WKV_PATH = (LM_BATCH, LM_PROMPT, 40, 64)
 # bf16 ulp of the largest output, 2^-7 of it
 SSD_TOL, WKV_TOL, BF16_REL = 2e-3, 1e-3, 2.0 ** -7
 SSD_ROUTE = {"float32": "ssd_scan_simt", "bfloat16": "ssd_scan_tc"}
+WKV_ROUTE = {"float32": "wkv6_simt", "bfloat16": "wkv6_tc"}
+# the main path's event pairs against the profiler's kernel-and-copy time
+# of the same run: at most this factor, plus this much a pair (the
+# device's own gaps between a payload's kernels and around its events)
+PAIR_FACTOR, PAIR_SLACK_S = 1.5, 5e-6
 # (b, s, h, p, n, with_state): tests/test_kernels.py's shapes, then a
 # ragged s and p, an n that is no multiple of 8, the largest n and one token
 SSD_CASES = [
@@ -444,12 +458,18 @@ def ssd_inputs(torch, gen, b, s, h, p, n, dtype, with_state=True):
     return x, dt, A, B, C, s0
 
 
-def wkv_inputs(torch, gen, B, T, H, N, dtype, with_state=True):
+def wkv_inputs(torch, gen, B, T, H, N, dtype, with_state=True, strong=False):
     """r, k, v in ``dtype``; the decay w = 0.4 + 0.55 sigmoid(N(0, 1)), the
-    bonus u and an initial state in f32, as tests/test_kernels.py draws them."""
+    bonus u and an initial state in f32, as tests/test_kernels.py draws
+    them; with ``strong``, w = exp(-exp(x)), x ~ N(1.5, 1), and 2% of w
+    exactly 0."""
     f = lambda *shape: torch.randn(*shape, device=DEVICE, generator=gen)
     r, k, v = (f(B, T, H, N).to(dtype) for _ in range(3))
-    w = torch.sigmoid(f(B, T, H, N)) * 0.55 + 0.4
+    if strong:
+        w = torch.exp(-torch.exp(f(B, T, H, N) + 1.5))
+        w = torch.where(torch.rand(w.shape, device=DEVICE, generator=gen) < 0.02, 0.0, w)
+    else:
+        w = torch.sigmoid(f(B, T, H, N)) * 0.55 + 0.4
     u = f(H, N)
     s0 = f(B, H, N, N) if with_state else None
     return r, k, v, w, u, s0
@@ -467,12 +487,15 @@ def recurrent_err(name, got, want, tol) -> float:
     return max(e_y, e_f)
 
 
-def phase_recurrent_vs_plain(ssd, wkv, torch, gen) -> dict:
+def phase_recurrent_vs_plain(ssd, wkv, fa, torch, gen) -> dict:
     """The SSD scan and wkv kernels against their plain versions: the case
     tables, then each path's own shape, in f32 and in the path's dtypes
-    (bf16 activations with f32 dt, decay and states).  Returns the largest
-    |kernel - plain| per kernel and dtype."""
-    err = {}
+    (bf16 activations with f32 dt, decay and states); wkv also on a
+    strong-decay draw with some w = 0, and a bf16 y also within
+    ``fa.BF16_REL_TOL`` of the plain version in f32 by ``fa.bf16_rel_err``.
+    Returns the largest |kernel - plain| per kernel and dtype, and the
+    largest wkv bf16 relative error (``("wkv6", "bf16_rel")``)."""
+    err = {("wkv6", "bf16_rel"): 0.0}
     for name in ("float32", "bfloat16"):
         dtype = getattr(torch, name)
         route = SSD_ROUTE[name]
@@ -489,29 +512,44 @@ def phase_recurrent_vs_plain(ssd, wkv, torch, gen) -> dict:
             del ins, got, want
         err[("ssd_scan", name)] = e
         e = 0.0
-        for B, T, H, N, with_state in WKV_CASES + [(*WKV_PATH, True)]:
-            ins = wkv_inputs(torch, gen, B, T, H, N, dtype, with_state)
-            got = wkv.wkv6(*ins)
-            want = wkv.wkv6_plain(*ins)
-            torch.cuda.synchronize()
-            e = max(e, recurrent_err(("wkv6", B, T, H, N), got, want, WKV_TOL))
-            del ins, got, want
+        route = WKV_ROUTE[name]
+        for strong in (False, True):
+            for B, T, H, N, with_state in WKV_CASES + [(*WKV_PATH, True)]:
+                ins = wkv_inputs(torch, gen, B, T, H, N, dtype, with_state, strong)
+                before = dict(wkv.launches)
+                got = wkv.wkv6(*ins)
+                want = wkv.wkv6_plain(*ins)
+                torch.cuda.synchronize()
+                assert wkv.launches[route] == before[route] + 1, (name, "not on", route)
+                assert wkv.launches["wkv6"] == before["wkv6"] + 1
+                e = max(e, recurrent_err(("wkv6", B, T, H, N, strong), got, want, WKV_TOL))
+                if name == "bfloat16":
+                    r, k, v, *rest = ins
+                    want = wkv.wkv6_plain(r.float(), k.float(), v.float(), *rest)[0]
+                    rel = fa.bf16_rel_err(got[0], want)
+                    assert rel <= fa.BF16_REL_TOL, (B, T, H, N, strong, rel)
+                    err[("wkv6", "bf16_rel")] = max(err[("wkv6", "bf16_rel")], rel)
+                del ins, got, want
         err[("wkv6", name)] = e
     log(f"[2] ssd_scan and wkv6 == plain versions on the card ({len(SSD_CASES)} + "
         f"{len(WKV_CASES)} cases: ragged lengths, initial states, several heads, "
         f"n 1..128, N 1..64; then the paths' shapes, SSD {list(SSD_PATH)} and wkv "
-        f"{list(WKV_PATH)}, with initial states; f32 tol {SSD_TOL} / {WKV_TOL}, "
-        f"bf16 y within one bf16 ulp of its largest value; SSD bf16 on the "
-        f"tensor-core kernel, f32 on FMA); max |err| "
+        f"{list(WKV_PATH)}, with initial states; wkv on the path's decay draw and "
+        f"on a strong-decay draw with 2% of w = 0; f32 tol {SSD_TOL} / {WKV_TOL}, "
+        f"bf16 y within one bf16 ulp of its largest value, wkv bf16 y within "
+        f"bf16_rel_err {fa.BF16_REL_TOL} of the plain version in f32; bf16 on the "
+        f"tensor-core kernels, f32 on FMA); max |err| "
         f"{ {f'{k[0]} {k[1]}': f'{v:.3g}' for k, v in err.items()} }")
     return err
 
 
 def run_stencil(repro_torch, apps, n, iters, nprocs, block, profile=False, **policy_kw):
     """The flagship through the port's runtime; returns (result, stats,
-    timings, peak device bytes).  With ``profile``, ``timings`` also
-    holds ``kernel_s``: the device time of every kernel and copy that
-    ran from the start of recording to the end of the drain, from
+    timings, peak device bytes).  ``timings`` holds the device clock's
+    ``timeout_log`` and ``max_hold_s``; with ``profile``, also
+    ``kernel_s``: the device time of every kernel and copy that ran from
+    the start of recording to the end of the drain but the stream gates,
+    whose time (``gate_s``) is the device waiting on the host, from
     ``torch.profiler`` (CUDA activity only)."""
     import contextlib
 
@@ -541,11 +579,17 @@ def run_stencil(repro_torch, apps, n, iters, nprocs, block, profile=False, **pol
         result = np.asarray(full)
         t3 = time.perf_counter()
         stats = rt.stats()
-    times = dict(record_s=t1 - t0, drain_s=t2 - t1, gather_s=t3 - t2)
+        clock = rt._exec_executor_obj._clock
+        times = dict(record_s=t1 - t0, drain_s=t2 - t1, gather_s=t3 - t2,
+                     timeout_log=list(clock.timeout_log), max_hold_s=clock.max_hold_s)
     if profile:
-        us = [getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
-              for e in window.key_averages() if e.device_type == DeviceType.CUDA]
-        times["kernel_s"] = sum(us) / 1e6
+        us = {"kernel_s": 0.0, "gate_s": 0.0}
+        for e in window.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                t = getattr(e, "self_device_time_total", None) or getattr(
+                    e, "self_cuda_time_total", 0.0)
+                us["gate_s" if "gate_wait" in e.key else "kernel_s"] += t
+        times.update({k: v / 1e6 for k, v in us.items()})
     return result, stats, times, torch.cuda.max_memory_allocated()
 
 
@@ -562,16 +606,33 @@ def thread_time_step() -> float:
     return min(steps)
 
 
+def log_gate(st, times, pairs: int) -> None:
+    """The stream gates of one run: pairs, timeouts (each named with its
+    payload's kind and cause) and the longest a payload held its gate."""
+    from repro_torch.exec.backend import _DeviceClock
+
+    log(f"    gated event pairs {pairs}, gate_timeouts {st.gate_timeouts}, longest a "
+        f"payload held its gate {times['max_hold_s'] * 1e3:.3f} ms (limit "
+        f"{_DeviceClock.GATE_TIMEOUT_S * 1e3:.0f} ms)")
+    for kind, cause, held in times["timeout_log"]:
+        log(f"    gate timeout: {kind}: {cause} (held {held * 1e3:.3f} ms)")
+    assert len(times["timeout_log"]) == st.gate_timeouts
+
+
 def phase_main_path(repro_torch, apps, ks) -> dict:
     """The flagship through the runtime with every kernel launch counted
     from 0, then once more under torch.profiler for the device's own
-    busy time."""
+    busy time, which the gated event pairs must match."""
     import torch
 
+    from repro_torch.kernels import stream_gate
+
     ks.reset_launches()
+    stream_gate.reset_launches()
     result, st, times, peak = run_stencil(
         repro_torch, apps, MAIN_N, MAIN_ITERS, MAIN_PROCS, MAIN_BLOCK
     )
+    pairs = stream_gate.launches["gate_wait"]
     t0 = time.perf_counter()
     swept = apps.jacobi_sweeps(MAIN_N, MAIN_ITERS, device=DEVICE)
     torch.cuda.synchronize()
@@ -591,6 +652,7 @@ def phase_main_path(repro_torch, apps, ks) -> dict:
     assert np.array_equal(swept, want), "jacobi_sweep iterations != host NumPy"
     for name, n in launches.items():
         assert n > 0, f"kernel {name} was not launched on the main path"
+    assert pairs > 0, "no payload of the main path was gated"
     assert launches["stencil5_block"] < n_frags, "no fragment shared a launch"
     # no copy launch after a stencil fragment: each wrote into its block
     assert staged == 0, f"{staged} fragments were staged and copied"
@@ -613,20 +675,31 @@ def phase_main_path(repro_torch, apps, ks) -> dict:
     top = sorted(frags.items(), key=lambda kv: -kv[1])[:5]
     log(f"    stencil5 fragment shapes (top 5 of {len(frags)}): {top}")
     log(f"    host_busy is thread time, which here steps by {thread_time_step() * 1e3:.3f} ms")
-    # the event pairs count any gap the host leaves inside a payload on an
-    # idle device; the profiler's kernel time is the device's busy time
+    log_gate(st, times, pairs)
+    # the gated pairs against the device's own busy time: the profiler's
+    # kernels and copies, the gates (the device waiting on the host) apart
     del result
+    stream_gate.reset_launches()
     result, prof_st, prof_times, _ = run_stencil(
         repro_torch, apps, MAIN_N, MAIN_ITERS, MAIN_PROCS, MAIN_BLOCK, profile=True)
+    prof_pairs = stream_gate.launches["gate_wait"]
     assert np.array_equal(result, want), "profiled run != host NumPy"
     window = prof_times["record_s"] + prof_times["drain_s"]
     kernel_s = prof_times["kernel_s"]
     log(f"    profiled run after (torch.profiler, CUDA activity): kernels and copies "
         f"{kernel_s:.4f} s of device time over record + drain ({window:.3f} s, share "
         f"{kernel_s / window:.4f}) and {kernel_s / prof_st.makespan:.4f} of its makespan "
-        f"{prof_st.makespan * 1e3:.3f} ms; its event-pair compute_busy "
-        f"{prof_st.total_compute:.4f} s (share {prof_st.total_compute / prof_st.makespan:.4f})")
+        f"{prof_st.makespan * 1e3:.3f} ms; the gates waited {prof_times['gate_s']:.4f} s; "
+        f"its gated pairs' compute_busy {prof_st.total_compute:.4f} s (share "
+        f"{prof_st.total_compute / prof_st.makespan:.4f})")
+    log_gate(prof_st, prof_times, prof_pairs)
     assert kernel_s > 0, "the profiler recorded no device time"
+    for name, run_st, n in (("profiled run", prof_st, prof_pairs), ("first run", st, pairs)):
+        bound = PAIR_FACTOR * kernel_s + PAIR_SLACK_S * n
+        log(f"    {name}: pairs' sum {run_st.total_compute:.4f} s over {n} pairs against the "
+            f"profiler's {kernel_s:.4f} s: ratio {run_st.total_compute / kernel_s:.3f}, bound "
+            f"{bound:.4f} s = {PAIR_FACTOR} x profiler + {PAIR_SLACK_S * 1e6:.0f} us a pair")
+        assert run_st.total_compute <= bound, (name, run_st.total_compute, bound)
     return dict(launches=launches, fragments=frags)
 
 
@@ -1181,26 +1254,36 @@ def phase_recurrent_times(ssd, wkv, torch, gen, launches: dict, err: dict) -> li
     B_, T, H, N = WKV_PATH
     r, k, v, w, u, _ = wkv_inputs(torch, gen, B_, T, H, N, torch.bfloat16, False)
     s0 = torch.zeros(B_, H, N, N, device=DEVICE)
-    ms = cuda_ms(lambda: wkv.wkv6(r, k, v, w, u, s0))
+    r32, k32, v32 = r.float(), k.float(), v.float()
+    # the two routes in alternating rounds: bf16 on the tensor-core kernel,
+    # f32 (the same values) on the FMA kernel
+    ms, ms_simt = cuda_ms_alternating([lambda: wkv.wkv6(r, k, v, w, u, s0),
+                                       lambda: wkv.wkv6(r32, k32, v32, w, u, s0)])
     plain_ms = cuda_ms(lambda: wkv.wkv6_plain(r, k, v, w, u, s0), reps=2, warmup=1)
     outs = wkv.wkv6(r, k, v, w, u, s0)
     nbytes = sum(t.numel() * t.element_size() for t in (r, k, v, w, u, s0, *outs))
+    nbytes32 = nbytes + 2 * (r.numel() * 3 + outs[0].numel())  # f32 r/k/v and y
     flops = 4 * B_ * T * H * N * N
     bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3
     records.append(dict(
-        name="wkv6", route="cuda", source=WKV_CU,
+        name="wkv6_tc", route="cuda", source=WKV_CU,
         replaces="src/repro/kernels/rwkv6_wkv/kernel.py:88",
-        launches=launches["wkv6"], max_abs_err=err[("wkv6", "bfloat16")],
+        launches=launches["wkv6_tc"], max_abs_err=err[("wkv6", "bfloat16")],
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S
         else "operations", library_ms=None,
     ))
-    log(f"[14] wkv6 r/k/v [{B_}, {T}, {H}, {N}] bf16, f32 w/u/state: kernel {ms:.3f} ms "
+    log(f"[14] wkv6 r/k/v [{B_}, {T}, {H}, {N}] bf16, f32 w/u/state (the tensor-core "
+        f"kernel; {launches['wkv6_tc']} launches over rwkv6's prefill): kernel {ms:.3f} ms "
         f"| bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s; "
         f"{flops / 1e9:.1f} GFLOP = {flops / BF16_FLOP_PER_S * 1e3:.4f} ms at 989 "
         f"TFLOP/s, {flops / 67e12 * 1e3:.4f} ms at the 67 TFLOP/s f32 rate) | plain "
         f"{plain_ms:.1f} ms | library: none (no single PyTorch call computes the "
-        f"recurrence) | {nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
+        f"recurrence) | {nbytes / (ms * 1e-3) / 1e9:.0f} GB/s | bf16_rel_err "
+        f"{err[('wkv6', 'bf16_rel')]:.4g} (phase 2)")
+    log(f"[14] wkv6 the same values in f32 (the FMA kernel, timed in rounds alternating "
+        f"with the tensor-core kernel): {ms_simt:.3f} ms | bound "
+        f"{nbytes32 / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes32 / 1e6:.1f} MB)")
     return records
 
 
@@ -1216,6 +1299,7 @@ def main() -> int:
     from repro_torch.kernels import mamba2_scan as ssd
     from repro_torch.kernels import rwkv6_wkv as wkv
     from repro_torch.kernels import stencil as ks
+    from repro_torch.kernels import stream_gate
 
     # f32 products in full f32, as the CPU reference computes them
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1225,7 +1309,7 @@ def main() -> int:
     log(f"[0] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"numpy {np.__version__} | python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    libs = (ks, fa, ssd, wkv)
+    libs = (ks, fa, ssd, wkv, stream_gate)
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:  # one nvcc per source
         builds = [pool.submit(mod.load) for mod in libs]
         built = [b.result() for b in builds]
@@ -1244,10 +1328,20 @@ def main() -> int:
     log(f"[1] SSD scan library SASS: {sass['HMMA']} HMMA (mma.sync) and {sass['LDGSTS']} "
         f"LDGSTS (cp.async) instructions")
     assert sass["HMMA"] > 0 and sass["LDGSTS"] > 0, sass
+    # the wkv library's bf16 kernel loads by the TMA, not cp.async
+    sass = sass_counts(built[libs.index(wkv)].path, ("HMMA", "UTMALDG", "LDGSTS"))
+    log(f"[1] wkv library SASS: {sass['HMMA']} HMMA (mma.sync), {sass['UTMALDG']} UTMALDG "
+        f"(TMA load) and {sass['LDGSTS']} LDGSTS (cp.async) instructions")
+    assert sass["HMMA"] > 0 and sass["UTMALDG"] > 0, sass
+    # the path's instance: head size 64, TMA loads
+    for entry, regs, spill_st, spill_ld in ptxas_report(built[libs.index(wkv)].log,
+                                                        "wkv6_tc_kernelILi64ELb1E"):
+        log(f"[1] ptxas, wkv6_tc_kernel<64, TMA> ({entry}): {regs} registers, "
+            f"{spill_st} bytes spill stores, {spill_ld} bytes spill loads")
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     err = phase_kernels_vs_plain(ks, torch, gen)
     flash_err = phase_flash_vs_plain(fa, torch, gen)
-    rec_err = phase_recurrent_vs_plain(ssd, wkv, torch, gen)
+    rec_err = phase_recurrent_vs_plain(ssd, wkv, fa, torch, gen)
     torch.cuda.empty_cache()
     main_info = phase_main_path(repro_torch, apps, ks)
     phase_paper_regime(repro_torch, apps, ks)
@@ -1264,7 +1358,7 @@ def main() -> int:
                               "flash_attention": (fa, 9),
                               "flash_attention_wgmma": (fa, 9)},
          dict(n_layers=6, layer_pattern="MMMMMH")),
-        (("11", "12"), RWKV, {"wkv6": (wkv, 32)}, dict(n_layers=2)),
+        (("11", "12"), RWKV, {"wkv6": (wkv, 32), "wkv6_tc": (wkv, 32)}, dict(n_layers=2)),
     ):
         lm = phase_lm(torch, tags[0], arch, expect, kernels)
         phase_layer_check(torch, tags[1], lm)
@@ -1277,8 +1371,8 @@ def main() -> int:
                                          launches[arch]["flash_attention_wgmma"], flash_err))
         torch.cuda.empty_cache()
     records += phase_recurrent_times(ssd, wkv, torch, gen, {
-        "ssd_scan_tc": launches[ZAMBA[0]]["ssd_scan_tc"], "wkv6": launches[RWKV[0]]["wkv6"]},
-        rec_err)
+        "ssd_scan_tc": launches[ZAMBA[0]]["ssd_scan_tc"],
+        "wkv6_tc": launches[RWKV[0]]["wkv6_tc"]}, rec_err)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": records}))
     log(card)

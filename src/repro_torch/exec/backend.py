@@ -24,8 +24,10 @@ the wall-clock counterpart of ``repro_torch.core.scheduler.run_schedule``:
   Every thread launches device work on the one current stream, so the
   device runs it in the order the dependency system released it;
 * with blocks on a CUDA device, compute is timed on the device: a CUDA
-  event pair around each payload (or grouped launch) on that stream, the
-  pairs resolved when the drain ends (:class:`_DeviceClock`), and the
+  event pair around each payload (or grouped launch) on that stream,
+  held behind a stream gate until the payload is queued, so that a pair
+  counts the payload's kernels and not the host's dispatch; the pairs
+  are resolved when the drain ends (:class:`_DeviceClock`), and the
   drain's makespan ends when the device has finished its work.
 
 Deadlock is detected structurally, not by timeout: when nothing is in
@@ -272,19 +274,41 @@ def make_backend(name, storage: dict, scratch: dict) -> ComputeBackend:
 # ---------------------------------------------------------------------------
 
 
+def _payload_kind(ops) -> str:
+    """A compute unit's name for the device clock's timeout log: the
+    payload's type (and ufunc), and how many ops share its launch."""
+    payload = ops[0].payload
+    uf = getattr(payload, "ufunc", None)
+    kind = type(payload).__name__ + (f"({getattr(uf, 'name', uf)})" if uf is not None else "")
+    return kind if len(ops) == 1 else f"{kind} x{len(ops)} in one launch"
+
+
 class _DeviceClock:
     """Device time of compute payloads on one CUDA device.
 
     Every worker launches on the device's current stream, so the stream
-    runs payloads one after another.  :meth:`timed` records an event
-    pair around one payload (or grouped launch) under ``stream_lock``,
-    which the executor's transfers take too: no other launch lands
-    between a pair's events, so the pairs' times add up to the device's
-    busy time and never count a kernel twice.  A pair's time is the
-    device time from its first to its last kernel, with any gap the host
-    leaves in between (on an idle device, the launch latency of the
-    first).  Work the recording thread launches outside the executor
-    (scatter, gather) is not held off and may fall inside a pair.
+    runs payloads one after another.  :meth:`timed` queues, under
+    ``stream_lock`` (which the executor's transfers take too), a stream
+    gate (:class:`~repro_torch.kernels.stream_gate.StreamGate`), the
+    start event, the payload (or grouped launch) and the end event, then
+    opens the gate.  The start event therefore runs only once the whole
+    payload is queued behind it, and the end event right after its last
+    kernel: a pair times the payload's kernels and the device's own gaps
+    between them, not the host's dispatch, and no other launch lands
+    between its events, so the pairs add up to the device's busy time.
+    Work the recording thread launches outside the executor (scatter,
+    gather) is not held off and may fall inside a pair.
+
+    A gate lets its stream go after ``GATE_TIMEOUT_S`` even if it is
+    never opened: a payload that synchronises inside waits that out once
+    and runs, and its pair counts from the timeout on.  Each timeout is
+    counted in ``gate_timeouts`` (of the worker and of each drain the
+    payload served) and logged in ``timeout_log`` as (kind, cause,
+    host seconds the gate was held); ``max_hold_s`` is the longest the
+    host held any gate.  The gate is made when the first drain is
+    submitted (:meth:`make_gate`), and a drain cannot start without it:
+    if it cannot be built, submitting raises; if a gate cannot be
+    launched, the payload fails, and so does its drain.
 
     Pairs are kept per worker until :meth:`settle` (at the end of each
     drain) resolves them; a worker that holds more than ``MAX_PENDING``
@@ -292,6 +316,9 @@ class _DeviceClock:
     long drain keeps a bounded number of live events."""
 
     MAX_PENDING = 64
+    # well above the host's time to queue a payload, GIL waits included
+    # (the switch interval is 5 ms), and far below a test's time limit
+    GATE_TIMEOUT_S = 0.05
 
     def __init__(self, device: torch.device, nworkers: int):
         self.device = device
@@ -299,6 +326,22 @@ class _DeviceClock:
         self._lock = threading.Lock()  # guards _pending, _free and the accounting
         self._pending = [collections.deque() for _ in range(nworkers)]
         self._free: list = []
+        self._gate = None  # made by make_gate, under stream_lock
+        self._timeouts_seen = 0  # of the gate's count, read into _timed_out
+        self._timed_out: set = set()  # epochs that timed out, not yet resolved
+        self.timeout_log: list = []
+        self.max_hold_s = 0.0
+
+    def make_gate(self) -> None:
+        """Build the gate library and the gate (once), before a drain's
+        payloads run, so that no payload's host time includes them."""
+        if self._gate is not None:  # made: no wait behind a payload's launch
+            return
+        with self.stream_lock:
+            if self._gate is None:
+                from repro_torch.kernels.stream_gate import StreamGate
+
+                self._gate = StreamGate(self.device)
 
     def _event(self):
         with self._lock:
@@ -306,22 +349,32 @@ class _DeviceClock:
                 return self._free.pop()
         return torch.cuda.Event(enable_timing=True)
 
-    def timed(self, fn) -> tuple:
-        """Run ``fn`` between the two events of a pair; returns the pair."""
+    def timed(self, fn, ops) -> tuple:
+        """Run ``fn`` between the two events of a gated pair; returns the
+        record :meth:`add` takes.  ``ops`` (the unit's operations) name it
+        in the timeout log."""
         start, end = self._event(), self._event()
         stream = torch.cuda.current_stream(self.device)
         with self.stream_lock:
-            start.record(stream)
+            t0 = time.perf_counter()
+            epoch = self._gate.wait(stream, self.GATE_TIMEOUT_S)
+            fn_s = 0.0
             try:
+                start.record(stream)
+                t1 = time.perf_counter()
                 fn()
+                fn_s = time.perf_counter() - t1
             finally:
                 end.record(stream)
-        return start, end
+                self._gate.open(epoch)
+                held = time.perf_counter() - t0
+                self.max_hold_s = max(self.max_hold_s, held)
+        return start, end, epoch, (ops, fn_s, held)
 
     def add(self, rank: int, pair: tuple, wstats: WorkerStats, shares: list) -> None:
-        """Keep ``pair`` until settled: its time goes to ``wstats`` and,
-        split by ``shares`` (``(drain stats, fraction)``), to each op's
-        drain."""
+        """Keep ``pair`` (from :meth:`timed`) until settled: its time goes
+        to ``wstats`` and, split by ``shares`` (``(drain stats,
+        fraction)``), to each op's drain."""
         with self._lock:
             q = self._pending[rank]
             q.append((*pair, wstats, shares))
@@ -332,13 +385,28 @@ class _DeviceClock:
                 self._resolve(oldest)
 
     def _resolve(self, rec) -> None:
-        """Account one complete pair (call with ``_lock`` held).  An
-        event pair that cannot be resolved raises."""
-        start, end, wstats, shares = rec
+        """Account one complete pair (call with ``_lock`` held, once its
+        end event has completed).  An event pair that cannot be resolved
+        raises."""
+        start, end, epoch, (ops, fn_s, held), wstats, shares = rec
         t = start.elapsed_time(end) / 1e3
         wstats.compute_busy += t
         for dstats, share in shares:
             dstats.compute_busy += t * share
+        n = self._gate.timeouts()
+        for i in range(self._timeouts_seen, n):
+            self._timed_out.add(self._gate.timed_out_epoch(i))
+        self._timeouts_seen = n
+        if epoch in self._timed_out:
+            self._timed_out.discard(epoch)
+            wstats.gate_timeouts += 1
+            for dstats in {id(d): d for d, _ in shares}.values():
+                dstats.gate_timeouts += 1
+            # a payload that synchronised blocked the host until the gate
+            # let go; otherwise the host was slower than the limit
+            cause = ("it synchronised" if fn_s >= self.GATE_TIMEOUT_S
+                     else "the host took longer than the timeout")
+            self.timeout_log.append((_payload_kind(ops), cause, held))
         self._free += (start, end)
 
     def settle(self) -> None:
@@ -354,6 +422,14 @@ class _DeviceClock:
         with self._lock:
             for rec in recs:
                 self._resolve(rec)
+
+    def close(self) -> None:
+        """Free the gate once the device has run every gate queued."""
+        with self.stream_lock:
+            if self._gate is not None:
+                torch.cuda.synchronize(self.device)
+                self._gate.close()
+                self._gate = None
 
 
 class _Drain:
@@ -708,7 +784,7 @@ class AsyncExecutor:
             if self._clock is None:
                 run()
             else:
-                pair = self._clock.timed(run)
+                pair = self._clock.timed(run, ops)
         except BaseException as exc:
             if col is not None:
                 for op in ops:
@@ -931,6 +1007,8 @@ class AsyncExecutor:
             raise RuntimeError("AsyncExecutor is closed")
         if self._error is not None:
             raise self._error
+        if self._clock is not None:
+            self._clock.make_gate()
         col = _obs.CURRENT
         prepared = []  # (deps, drain, pending) per item
         with self._glock:
@@ -1030,6 +1108,8 @@ class AsyncExecutor:
         if self._workers_started:
             for w in self.workers:
                 w.join(timeout=5.0)
+        if self._clock is not None:
+            self._clock.close()
         if self._owns_channel:
             self.channel.close()
 

@@ -26,13 +26,21 @@ class WorkerStats:
       scheduler preemption excluded), as in the reference.  With blocks
       on a CUDA device it is device time: a CUDA event pair around each
       payload or grouped launch on the stream it launches on, split
-      across a group's ops by element count.  The executor serialises
-      the pairs, so their sum over all workers is the device's busy time.
+      across a group's ops by element count.  A stream gate holds each
+      pair's start event until the whole payload is queued, so a pair
+      counts the payload's kernels and the device's gaps between them,
+      not the host's dispatch.  The executor serialises the pairs, so
+      their sum over all workers is the device's busy time.
     * ``host_busy``: per-thread CPU time around each payload on either
       device — on a GPU the host's cost of queueing it (a launch returns
       once it is queued).  Equal to ``compute_busy`` on the CPU.
     * ``comm_busy`` and ``idle`` are wall-clock — being blocked is the
-      thing measured."""
+      thing measured.
+    * ``gate_timeouts``: payloads whose stream gate let go on its time
+      limit before the host opened it (a payload that synchronised
+      inside, or a host slower than the limit), read from the device when
+      the drain settles; their pairs count from the timeout on.  Always 0
+      on the CPU, where nothing is gated."""
 
     compute_busy: float = 0.0  # executing compute payloads (see above)
     host_busy: float = 0.0  # host CPU time spent launching compute payloads
@@ -43,6 +51,7 @@ class WorkerStats:
     n_wakeups: int = 0  # queue pops (one per batch under batched dispatch)
     n_steals: int = 0  # successful steal attempts (batches taken)
     n_stolen: int = 0  # ops obtained by stealing from loaded peers
+    gate_timeouts: int = 0  # gated payloads whose gate timed out (see above)
 
     def absorb(self, other: "WorkerStats") -> None:
         self.compute_busy += other.compute_busy
@@ -54,6 +63,7 @@ class WorkerStats:
         self.n_wakeups += other.n_wakeups
         self.n_steals += other.n_steals
         self.n_stolen += other.n_stolen
+        self.gate_timeouts += other.gate_timeouts
 
     def snapshot(self) -> "WorkerStats":
         """Value copy, taken by the persistent executor at submit time so
@@ -68,6 +78,7 @@ class WorkerStats:
             n_wakeups=self.n_wakeups,
             n_steals=self.n_steals,
             n_stolen=self.n_stolen,
+            gate_timeouts=self.gate_timeouts,
         )
 
     def since(self, base: "WorkerStats") -> "WorkerStats":
@@ -82,6 +93,7 @@ class WorkerStats:
             n_wakeups=self.n_wakeups - base.n_wakeups,
             n_steals=self.n_steals - base.n_steals,
             n_stolen=self.n_stolen - base.n_stolen,
+            gate_timeouts=self.gate_timeouts - base.gate_timeouts,
         )
 
 
@@ -183,6 +195,12 @@ class WaitStats:
     def n_stolen(self) -> int:
         """Ops moved between workers by stealing."""
         return sum(p.n_stolen for p in self.procs)
+
+    @property
+    def gate_timeouts(self) -> int:
+        """Gated payloads whose stream gate timed out (see
+        :class:`WorkerStats`); 0 on the CPU."""
+        return sum(p.gate_timeouts for p in self.procs)
 
     @property
     def ops_per_sec(self) -> float:

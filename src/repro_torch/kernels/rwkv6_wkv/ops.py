@@ -1,10 +1,13 @@
 """Wrapper of the hand-written RWKV6 wkv kernel, with its plain version.
 
-``wkv6`` checks its inputs, then either launches the CUDA kernel
+``wkv6`` checks its inputs, then either launches a CUDA kernel
 (``csrc/wkv6.cu``) on the current stream — for tensors on a CUDA device
 — or runs ``wkv6_plain`` — for tensors on the CPU, where no kernel
-exists.  There is no other route: a CUDA tensor launches the kernel or
-raises.
+exists.  On the card the dtype picks the kernel: bf16 r, k, v run
+``wkv6_tc_kernel`` (the chunked form on tensor cores, with asynchronous
+chunk loads), f32 ``wkv6_simt_kernel`` (the recurrence token by token on
+FP32 FMA).  There is no other route: a CUDA tensor launches its dtype's
+kernel or raises.
 
 The layout is the JAX wrapper's (``repro.kernels.rwkv6_wkv``): r, k, v
 and the decay w ``[B, T, H, N]``, the bonus u ``[H, N]``, an initial
@@ -12,7 +15,8 @@ state ``[B, H, N, N]`` indexed ``S[i (key), j (value)]``.  Unlike that
 wrapper nothing is padded: the kernel walks the true ``T``.
 
 ``launches`` counts kernel launches (plain-version calls are not
-launches).
+launches): ``"wkv6"`` every launch, ``"wkv6_tc"`` and ``"wkv6_simt"``
+each route's.
 """
 from __future__ import annotations
 
@@ -28,11 +32,13 @@ from repro_torch.kernels.build import BuiltLibrary, build_library
 __all__ = ["wkv6", "wkv6_plain", "launches", "reset_launches", "load"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv6.cu"
-MAX_HEAD = 64  # kMaxN in wkv6.cu: the largest head size the kernel holds
+MAX_HEAD = 64  # kMaxN in wkv6.cu: the largest head size the kernels hold
+TC_CHUNK = 64  # tc::kQ in wkv6.cu: tokens per chunk of the tensor-core kernel
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_ROUTE = {torch.float32: "wkv6_simt", torch.bfloat16: "wkv6_tc"}
 
-launches = {"wkv6": 0}
+launches = {"wkv6": 0, "wkv6_tc": 0, "wkv6_simt": 0}
 _count_lock = threading.Lock()
 _bind_lock = threading.Lock()
 _bound: set = set()
@@ -40,12 +46,14 @@ _bound: set = set()
 
 def reset_launches() -> None:
     with _count_lock:
-        launches["wkv6"] = 0
+        for name in launches:
+            launches[name] = 0
 
 
-def _count() -> None:
+def _count(route: str) -> None:
     with _count_lock:
         launches["wkv6"] += 1
+        launches[route] += 1
 
 
 def load() -> BuiltLibrary:
@@ -58,11 +66,12 @@ def load() -> BuiltLibrary:
                 fn = getattr(built.lib, f"wkv6_{sfx}")
                 fn.argtypes = [p] * 8 + [i64] * 4 + [p]
                 fn.restype = ctypes.c_int
-            built.lib.wkv6_max_head.argtypes = []
-            built.lib.wkv6_max_head.restype = ctypes.c_int
-            if built.lib.wkv6_max_head() != MAX_HEAD:
-                raise RuntimeError("wkv6.cu and ops.py disagree on the largest "
-                                   "head size")
+            for name, want in (("wkv6_max_head", MAX_HEAD), ("wkv6_tc_chunk", TC_CHUNK)):
+                fn = getattr(built.lib, name)
+                fn.argtypes = []
+                fn.restype = ctypes.c_int
+                if fn() != want:
+                    raise RuntimeError(f"wkv6.cu and ops.py disagree on {name}")
             _bound.add(built.path)
     return built
 
@@ -147,10 +156,12 @@ def wkv6(
     """RWKV6 wkv recurrence with per-channel, data-dependent decay.
 
     r, k, v ``[B, T, H, N]`` in one dtype (float32 or bfloat16); the
-    decay w ``[B, T, H, N]`` (in (0, 1)), the bonus u ``[H, N]`` and
+    decay w ``[B, T, H, N]`` (in [0, 1)), the bonus u ``[H, N]`` and
     ``init_state`` ``[B, H, N, N]`` (None: zeros) in float32;
-    contiguous, ``N <= 64`` on the card.  Returns (y ``[B, T, H, N]`` in
-    r's dtype, final state ``[B, H, N, N]`` float32)."""
+    contiguous, ``N <= 64`` on the card, where bf16 runs the
+    tensor-core kernel (``T < 2**31``) and float32 the FMA kernel.
+    Returns (y ``[B, T, H, N]`` in r's dtype, final state ``[B, H, N,
+    N]`` float32)."""
     _check(r, k, v, w, u, init_state)
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, init_state)
@@ -173,6 +184,8 @@ def wkv6(
                 y.data_ptr(), final.data_ptr(), B, T, H, N,
                 torch.cuda.current_stream(r.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"wkv6: kernel launch failed (cudaError {rc})")
-    _count()
+        why = (f"cuTensorMapEncodeTiled returned CUresult {-1000 - rc}" if rc <= -1000
+               else f"cudaError {rc}")
+        raise RuntimeError(f"wkv6: kernel launch failed ({why})")
+    _count(_ROUTE[r.dtype])
     return y, final

@@ -1,8 +1,8 @@
 """The port on a CUDA device: kernels against their plain versions, the
 paper's eight apps with blocks on the GPU against the NumPy interpreter
-of the JAX package's runtime (which imports no JAX on this path), and
-the LMs' prefill with the kernels (flash, SSD scan, wkv) against their
-torch twins.
+of the JAX package's runtime (which imports no JAX on this path), the
+executor's device clock (gated event pairs), and the LMs' prefill with
+the kernels (flash, SSD scan, wkv) against their torch twins.
 Marked ``gpu``; each test skips where no CUDA device is visible.
 
     python -m pytest -m gpu tests/test_torch_gpu.py
@@ -139,6 +139,78 @@ def test_device_time_shows_in_compute_busy(cuda):
     assert 0.85 * expect <= st.total_compute <= 1.3 * expect, st.total_compute
     assert st.total_host < 0.2 * expect, st.total_host
     assert st.makespan >= 0.95 * st.total_compute
+
+
+def _sleep_cycles(ms: float) -> int:
+    """``torch.cuda._sleep`` cycles that take about ``ms`` on this card."""
+    torch.cuda._sleep(1000)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(10_000_000)
+    b.record()
+    b.synchronize()
+    return int(10_000_000 * ms / a.elapsed_time(b))
+
+
+def _drain(payload, n_ops: int, nworkers: int = 2):
+    """``n_ops`` independent ops of ``payload`` through an executor with a
+    device clock; returns (stats, the clock's timeout log)."""
+    from repro_torch.core.graph import COMPUTE, AccessNode, DependencySystem, OperationNode
+    from repro_torch.exec import AsyncExecutor, ComputeBackend
+
+    class Backend(ComputeBackend):
+        def execute(self, op):
+            payload()
+
+    deps = DependencySystem()
+    for i in range(n_ops):
+        op = OperationNode(COMPUTE, None, procs=(i % nworkers,))
+        op.add_access(AccessNode(("b", i), None, write=True))
+        deps.insert(op)
+    ex = AsyncExecutor(nworkers, {}, {}, backend=Backend({}, {}), device="cuda")
+    try:
+        st = ex.run(deps)
+        log = list(ex._clock.timeout_log)
+    finally:
+        ex.close()
+    return st, log
+
+
+def test_gated_pair_counts_no_host_gap(cuda):
+    """A payload of two ~0.2 ms kernels with 5 ms of host time between
+    them: the gate holds the pair's start until both are queued, so the
+    pair counts the kernels (<= 0.6 ms a payload), not the host's 5 ms."""
+    import time
+
+    cycles = _sleep_cycles(0.2)
+
+    def payload():
+        torch.cuda._sleep(cycles)
+        time.sleep(0.005)
+        torch.cuda._sleep(cycles)
+
+    n_ops = 6
+    st, log = _drain(payload, n_ops)
+    assert st.n_compute_ops == n_ops and st.gate_timeouts == 0 and log == []
+    assert 0.3e-3 * n_ops <= st.total_compute <= 0.6e-3 * n_ops, st.total_compute
+
+
+def test_payload_that_synchronises_counts_one_gate_timeout(cuda):
+    """A payload that waits for the device inside waits out its gate's
+    limit once, completes, and is counted and logged as a timeout."""
+    from repro_torch.exec.backend import _DeviceClock
+
+    cycles = _sleep_cycles(0.2)
+
+    def payload():
+        torch.cuda._sleep(cycles)
+        torch.cuda.synchronize()
+
+    st, log = _drain(payload, 1, nworkers=1)
+    assert st.n_compute_ops == 1 and st.gate_timeouts == 1
+    assert len(log) == 1 and log[0][1] == "it synchronised", log
+    assert log[0][2] >= _DeviceClock.GATE_TIMEOUT_S
+    assert 0.1e-3 <= st.total_compute <= 5e-3, st.total_compute
 
 
 def test_flash_attention_rows_without_keys_are_zero(cuda):
@@ -376,22 +448,68 @@ def test_ssd_scan_tc_kernel_at_the_zamba2_path_shape(cuda):
     _assert_recurrent_close(got, ssd.ssd_scan_plain(x, dt, A, B, C, s0), SSD_TOL)
 
 
+def _wkv_decay(f, shape, draw, g):
+    """The decay w of a draw: "path", 0.4 + 0.55 sigmoid(N(0, 1)) as
+    tests/test_kernels.py draws it; "strong", exp(-exp(x)), x ~ N(1.5, 1),
+    with 2% of w exactly 0; "zeros", the path's draw with 10% of w 0."""
+    if draw == "strong":
+        w = torch.exp(-torch.exp(f(*shape) + 1.5))
+        zero = torch.rand(shape, device=w.device, generator=g) < 0.02
+    else:
+        w = torch.sigmoid(f(*shape)) * 0.55 + 0.4
+        zero = torch.rand(shape, device=w.device, generator=g) < (0.1 if draw == "zeros" else 0)
+    return torch.where(zero, 0.0, w)
+
+
+# bf16 runs the chunked form on tensor cores, f32 the FMA recurrence
+WKV_ROUTE = {torch.float32: "wkv6_simt", torch.bfloat16: "wkv6_tc"}
+
+
+@pytest.mark.parametrize("draw", ["path", "strong", "zeros"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", WKV_CASES)
-def test_wkv6_kernel_matches_plain(cuda, dtype, case):
+def test_wkv6_kernel_matches_plain(cuda, dtype, case, draw):
+    """Each case on its dtype's kernel within the tolerances; a bf16 y
+    also within ``bf16_rel_err`` 2^-6 of the plain version in f32 on the
+    same bf16 values."""
     from repro_torch.kernels import rwkv6_wkv as wkv
 
     B, T, H, N, with_state = case
     g = torch.Generator(device=cuda).manual_seed(6)
     f = lambda *shape: torch.randn(*shape, device=cuda, generator=g)
     r, k, v = (f(B, T, H, N).to(dtype) for _ in range(3))
-    w, u = torch.sigmoid(f(B, T, H, N)) * 0.55 + 0.4, f(H, N)
+    w, u = _wkv_decay(f, (B, T, H, N), draw, g), f(H, N)
     s0 = f(B, H, N, N) if with_state else None
-    before = wkv.launches["wkv6"]
+    route = WKV_ROUTE[dtype]
+    before = dict(wkv.launches)
     got = wkv.wkv6(r, k, v, w, u, s0)
     torch.cuda.synchronize()
-    assert wkv.launches["wkv6"] == before + 1
+    assert wkv.launches["wkv6"] == before["wkv6"] + 1
+    assert wkv.launches[route] == before[route] + 1, f"not on {route}"
     _assert_recurrent_close(got, wkv.wkv6_plain(r, k, v, w, u, s0), WKV_TOL)
+    if dtype == torch.bfloat16:
+        want = wkv.wkv6_plain(r.float(), k.float(), v.float(), w, u, s0)[0]
+        assert fa.bf16_rel_err(got[0], want) <= fa.BF16_REL_TOL
+
+
+def test_wkv6_tc_kernel_at_the_rwkv6_path_shape(cuda):
+    """r/k/v [2, 8192, 40, 64] in bf16 with an initial state, as the
+    rwkv6-3b prefill calls it: on the tensor-core kernel, within the
+    tolerances of the cases above."""
+    from repro_torch.kernels import rwkv6_wkv as wkv
+
+    B, T, H, N = 2, 8192, 40, 64
+    g = torch.Generator(device=cuda).manual_seed(8)
+    f = lambda *shape: torch.randn(*shape, device=cuda, generator=g)
+    r, k, v = (f(B, T, H, N).bfloat16() for _ in range(3))
+    w, u, s0 = _wkv_decay(f, (B, T, H, N), "path", g), f(H, N), f(B, H, N, N)
+    before = wkv.launches["wkv6_tc"]
+    got = wkv.wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert wkv.launches["wkv6_tc"] == before + 1
+    _assert_recurrent_close(got, wkv.wkv6_plain(r, k, v, w, u, s0), WKV_TOL)
+    want = wkv.wkv6_plain(r.float(), k.float(), v.float(), w, u, s0)[0]
+    assert fa.bf16_rel_err(got[0], want) <= fa.BF16_REL_TOL
 
 
 def test_recurrent_wrappers_raise_on_cuda_inputs_they_do_not_take(cuda):

@@ -15,6 +15,7 @@ torch sums and evaluates exp/log/pow in another order or with another
 libm than NumPy.
 """
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -132,6 +133,76 @@ def test_cpu_compute_busy_is_thread_time():
     assert st.total_compute > 0
     for p in st.procs:
         assert p.compute_busy == p.host_busy
+
+
+def test_cpu_runs_are_not_gated():
+    """Blocks on the CPU: no stream gate is built or launched, and no
+    payload counts a gate timeout."""
+    from repro_torch.kernels import stream_gate
+
+    before = stream_gate.launches["gate_wait"]
+    st, _ = _port("jacobi_stencil", fusion=True)
+    assert st.gate_timeouts == 0 and all(p.gate_timeouts == 0 for p in st.procs)
+    assert stream_gate.launches["gate_wait"] == before
+
+
+def test_device_clock_accounts_gate_timeouts():
+    """The device clock's accounting, with stand-ins for the events and
+    the gate: each pair's time goes to its worker and, by share, to its
+    drains; a pair whose epoch the gate reports timed out counts one
+    timeout for the worker and for each drain it served, and is logged
+    with its kind and cause (the payload blocked past the limit: it
+    synchronised; else the host was slower than the limit)."""
+    from repro_torch.exec.backend import _DeviceClock
+    from repro_torch.exec.stats import WaitStats, WorkerStats
+
+    class Event:
+        def __init__(self, t):
+            self.t = t
+
+        def elapsed_time(self, other):  # ms, as torch.cuda.Event's
+            return (other.t - self.t) * 1e3
+
+    class Gate:  # epochs 2 and 3 timed out
+        def timeouts(self):
+            return 2
+
+        def timed_out_epoch(self, n):
+            return (2, 3)[n]
+
+    class Map:  # payloads, as the log names them
+        ufunc = types.SimpleNamespace(name="add")
+
+    class Fill:
+        pass
+
+    def ops(payload, n):
+        return tuple(types.SimpleNamespace(payload=payload) for _ in range(n))
+
+    clock = _DeviceClock(torch.device("cuda"), 2)
+    clock._gate = Gate()
+    limit = clock.GATE_TIMEOUT_S
+    w0, w1, d1, d2 = WorkerStats(), WorkerStats(), WorkerStats(), WorkerStats()
+    recs = [
+        (Event(0.0), Event(0.001), 1, (ops(Map(), 1), 1e-4, 2e-4), w0, [(d1, 1.0)]),
+        (Event(0.0), Event(0.004), 2, (ops(Map(), 2), 2 * limit, 2.1 * limit),
+         w0, [(d1, 0.5), (d2, 0.5)]),
+        (Event(0.0), Event(0.002), 3, (ops(Fill(), 1), 1e-4, 1.5 * limit), w1, [(d2, 1.0)]),
+    ]
+    with clock._lock:
+        for rec in recs:
+            clock._resolve(rec)
+    assert w0.compute_busy == pytest.approx(0.005) and w1.compute_busy == pytest.approx(0.002)
+    assert d1.compute_busy == pytest.approx(0.003) and d2.compute_busy == pytest.approx(0.004)
+    assert (w0.gate_timeouts, w1.gate_timeouts, d1.gate_timeouts, d2.gate_timeouts) == (1, 1, 1, 2)
+    assert clock.timeout_log == [
+        ("Map(add) x2 in one launch", "it synchronised", 2.1 * limit),
+        ("Fill", "the host took longer than the timeout", 1.5 * limit),
+    ]
+    assert not clock._timed_out
+    st = WaitStats(mode="async", nworkers=2, procs=[w0, w1])
+    assert st.gate_timeouts == 2
+    assert st.merge(WaitStats(mode="async", nworkers=2, procs=[d1, d2])).gate_timeouts == 5
 
 
 @pytest.mark.parametrize("app", ["jacobi_stencil", "black_scholes", "lbm3d"])

@@ -1,9 +1,11 @@
 """The port's RWKV6 path against the JAX package's, on the CPU.
 
 ``wkv6_plain`` (what the wkv wrapper runs for CPU tensors, and what the
-CUDA kernel is held to on the card) against the Pallas kernel in
+CUDA kernels are held to on the card) against the Pallas kernel in
 interpret mode and the ``ref.py`` oracle, on tests/test_kernels.py's
-shapes and tolerance (1e-3); the torch twins ``wkv_chunked`` and
+shapes and tolerance (1e-3); the bf16 tensor-core kernel's arithmetic
+(``_tc_form``) against ``wkv6_plain``, with and without its hi/lo
+splits; the torch twins ``wkv_chunked`` and
 ``wkv_step`` and the block (``rwkv6_apply``/``rwkv6_step``) against
 their JAX originals; then the reduced rwkv6-3b (4 ``R`` layers, head
 size 32) with the JAX package's weights carried over by
@@ -29,7 +31,9 @@ from repro.kernels.rwkv6_wkv import wkv6 as jax_wkv6
 from repro.kernels.rwkv6_wkv import wkv6_ref
 from repro.models import rwkv6 as jrwkv
 import repro_torch.configs as tcfg
+from repro_torch.kernels.flash_attention import BF16_REL_TOL, bf16_rel_err
 from repro_torch.kernels.rwkv6_wkv import launches, wkv6, wkv6_plain
+from repro_torch.kernels.rwkv6_wkv.ops import TC_CHUNK
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import decode_step, forward, model as tmodel, prefill
 from repro_torch.models import rwkv6 as trwkv
@@ -131,6 +135,122 @@ def test_wrapper_checks_its_inputs():
         wkv6(r, k, v, w, u, torch.zeros(1, 2, 4, 5))
     with pytest.raises(ValueError, match="u is"):
         wkv6(r, k, v, w, u[:1])
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core kernel's precision scheme, emulated
+# ---------------------------------------------------------------------------
+
+
+def _tc_form(r, k, v, w, u, s0, *, split, chunk=TC_CHUNK, sub=16):
+    """The bf16 kernel's arithmetic (``wkv6_tc_kernel``), emulated on the
+    CPU: per chunk of ``chunk`` tokens and sub-chunk a of ``sub``, with
+    w' = max(w, 1e-12) (1 past T) and products taken within the sub-chunk,
+
+        Rd_t = r_t prod(w' of a before t),  Kd_s = k_s prod(w' of a after s),
+        T_a = prod(w' of a)
+        att[t, s] = (Rd_t D_ab) . Kd_s for s in b < a, D_ab = T_b+1 .. T_a-1
+        att[t, s] = sum_i r_t k_s prod_{s<σ<t} w'_σ (s < t in a, exact f32)
+        att[t, t] = r_t . (u k_t)
+        y = att v + (Rd E_a) S,   E_a = T_0 .. T_a-1
+        S = (T_0 .. T_3) S + (Kd F_b)ᵀ v,   F_b = T_b+1 .. T_3
+
+    (each decay is exp(cumprev_t - cum_s) of the recurrence, a product
+    in (0, 1]).  r, k, v enter as their bf16 values; each factor computed
+    in f32 enters its product as a bf16 pair hi + lo with lo = bf16(x -
+    hi) (``split``, the kernel's scheme; a product of two computed factors
+    takes hi hi + hi lo + lo hi), or rounded once to bf16.  Products of
+    bf16 values are exact in f32 and every sum is f32, as on the tensor
+    cores."""
+    B, T, H, N = r.shape
+    nsub = chunk // sub
+    S = torch.zeros(B, H, N, N) if s0 is None else s0.clone()
+    y = torch.empty(B, T, H, N)
+
+    def parts(x):
+        hi = x.bfloat16().float()
+        return (hi, (x - hi).bfloat16().float()) if split else (hi,)
+
+    def both(a, b, eq):  # two computed factors
+        (ah, *al), (bh, *bl) = parts(a), parts(b)
+        out = torch.einsum(eq, ah, bh)
+        for x, z in zip(al, bl):
+            out = out + torch.einsum(eq, ah, z) + torch.einsum(eq, x, bh)
+        return out
+
+    def one(a, b, eq):  # a computed factor and an input
+        return sum(torch.einsum(eq, x, b) for x in parts(a))
+
+    for t0 in range(0, T, chunk):
+        nt = min(chunk, T - t0)
+
+        def rows(x, fill):  # the chunk, padded to `chunk` tokens as the kernel's loads pad it
+            c = x[:, t0:t0 + nt].float()
+            pad = torch.full((B, chunk - nt, H, N), fill)
+            return torch.cat([c, pad], 1).view(B, nsub, sub, H, N)
+
+        rc, kc, vc = rows(r, 0.0), rows(k, 0.0), rows(v, 0.0)
+        wf = torch.clamp(rows(w, 1.0), min=1e-12)
+        one_row = torch.ones_like(wf[:, :, :1])
+        before = torch.cumprod(torch.cat([one_row, wf[:, :, :-1]], 2), 2)
+        after = torch.flip(torch.cumprod(torch.cat([one_row, torch.flip(wf, [2])[:, :, :-1]], 2), 2), [2])
+        Ts = torch.prod(wf, 2)  # [B, nsub, H, N]
+        Rd, Kd = rc * before, kc * after
+        att = torch.zeros(B, H, chunk, chunk)
+        for a in range(nsub):
+            ta = slice(sub * a, sub * a + sub)
+            for b in range(a):
+                D = torch.prod(Ts[:, b + 1:a], 1)  # 1 where empty
+                att[:, :, ta, sub * b:sub * b + sub] = both(
+                    Rd[:, a] * D[:, None], Kd[:, b], "bthi,bshi->bhts")
+            for t in range(sub):
+                d = torch.ones(B, H, N)
+                for s in range(t - 1, -1, -1):
+                    att[:, :, sub * a + t, sub * a + s] = (rc[:, a, t] * d * kc[:, a, s]).sum(-1)
+                    d = d * wf[:, a, s]
+                att[:, :, sub * a + t, sub * a + t] = (rc[:, a, t] * u * kc[:, a, t]).sum(-1)
+        vflat = vc.view(B, chunk, H, N)
+        E = torch.stack([torch.prod(Ts[:, :a], 1) for a in range(nsub)], 1)[:, :, None]
+        F = torch.stack([torch.prod(Ts[:, a + 1:], 1) for a in range(nsub)], 1)[:, :, None]
+        yc = one(att, vflat.transpose(1, 2), "bhts,bhsj->bthj")
+        yc = yc + both((Rd * E).view(B, chunk, H, N), S, "bthi,bhij->bthj")
+        y[:, t0:t0 + nt] = yc[:, :nt]
+        S = S * torch.prod(Ts, 1)[..., None] + one((Kd * F).view(B, chunk, H, N), vflat,
+                                             "bshi,bshj->bhij")
+    return y.to(r.dtype), S
+
+
+def _strong_decay_inputs(seed, B, T, H, N, with_state):
+    """``_wkv_inputs`` with w = exp(-exp(x)), x ~ N(1.5, 1) (most w near
+    0.01, some near 1) and 2% of w exactly 0."""
+    r, k, v, _, u, s0 = _wkv_inputs(seed, B, T, H, N, with_state)
+    rng = np.random.default_rng(seed + 1)
+    w = np.exp(-np.exp(rng.standard_normal((B, T, H, N), dtype=np.float32) + 1.5))
+    w[rng.random(w.shape) < 0.02] = 0.0
+    return r, k, v, w.astype(np.float32), u, s0
+
+
+# chip_smoke.wkv_inputs's draw at a tenth of rwkv6-3b's heads and an
+# eighth of its prompt, with the path's head size 64; a ragged last chunk
+# (1000 = 15 x 64 + 40) with an initial state; the strong-decay draw
+@pytest.mark.parametrize("T,with_state,draw", [
+    (1024, False, _wkv_inputs), (1000, True, _wkv_inputs), (512, True, _strong_decay_inputs),
+])
+def test_tc_kernel_precision_scheme_holds_the_tolerances(T, with_state, draw):
+    """The hi/lo split keeps the final state within KERNEL_TOL (1e-3, the
+    card's kernel-vs-plain bound) and y within 2^-7 of its largest value
+    and within ``bf16_rel_err`` 2^-6 of the f32 recurrence; rounding each
+    computed factor once to bf16 puts the state over KERNEL_TOL."""
+    r, k, v, w, u, s0 = map(_t, draw(9, 1, T, 4, 64, with_state))
+    r, k, v = r.bfloat16(), k.bfloat16(), v.bfloat16()
+    y_ref, fin_ref = wkv6_plain(r.float(), k.float(), v.float(), w, u, s0)
+    y, fin = _tc_form(r, k, v, w, u, s0, split=True)
+    assert y.dtype == torch.bfloat16 and torch.isfinite(fin).all()
+    assert float((y.float() - y_ref).abs().max()) <= BF16_REL * float(y_ref.abs().max())
+    assert bf16_rel_err(y, y_ref) <= BF16_REL_TOL
+    assert float((fin - fin_ref).abs().max()) <= KERNEL_TOL
+    _, fin1 = _tc_form(r, k, v, w, u, s0, split=False)
+    assert float((fin1 - fin_ref).abs().max()) > KERNEL_TOL
 
 
 # ---------------------------------------------------------------------------
