@@ -40,6 +40,25 @@ Phases, each asserted (any failure exits non-zero):
    ``sync="demand"`` and ``sync="barrier"``;
 5. the overlap probe of examples/stencil_latency_hiding.py (256², 8
    workers, 10 ms injected latency) on the async and blocking channels;
+S. the serving path: ``repro_torch.Server`` on the card at the paper's
+   regime (16 processes, 512² blocks, flush, channel async, sync
+   demand), 8 closed-loop tenant threads with a 4098² f64 grid each,
+   1 request a tenant (scatter the grid, 2 sweeps, gather it back),
+   serialised (``max_inflight=1``) and concurrent (``max_inflight=8``):
+   every result equal to host NumPy and to a barrier-flush run bit for
+   bit, every fused map on ``stencil5_group`` (fewer launches than
+   fragments), admitted + rejected = submitted with 0 rejected,
+   ``gate_timeouts`` 0; prints requests/s, latency quantiles, makespan,
+   ``wait_fraction``, device busy share, ``host_busy`` and peak memory;
+   then the concurrent variant under ``torch.profiler``, its gated pairs
+   within 1.5 x the kernels and copies + 5 us a pair;
+V. verification and the trace: the paper-regime stencil (6 sweeps)
+   with ``verify="full"``, the plan cache and a trace export path:
+   equal to host NumPy, 0 diagnostics over verified flushes, the cached
+   plans re-verified clean, ``validate_trace`` accepting the file,
+   ``attribution``'s ``wait_fraction`` within 0.02 of the device-timed
+   ``WaitStats`` and its compute the gated pairs' own; the fig. 6
+   rendezvous schedule rejected before any thread starts;
 6. each stencil kernel's time at the main path's shapes beside its
    bound, its plain version's time and a PyTorch yardstick where one
    exists: ``stencil5_block`` on the interior fragment as the runtime
@@ -115,6 +134,13 @@ SSD_CU = "src/repro_torch/kernels/mamba2_scan/csrc/ssd_scan.cu"
 WKV_CU = "src/repro_torch/kernels/rwkv6_wkv/csrc/wkv6.cu"
 MAIN_N, MAIN_ITERS, MAIN_PROCS, MAIN_BLOCK = 16384, 6, 16, 2048
 PAPER_N, PAPER_BLOCK = 4096, 512
+# phase S: closed-loop tenants of a Server at the paper's regime, each
+# with its own grid (tenant i's edge is 1 + i); a request scatters the
+# tenant's grid, records SERVE_SWEEPS sweeps and gathers the grid back.
+# One request a tenant: at two, the phase took ~120 s of the run's time
+SERVE_TENANTS, SERVE_REQUESTS, SERVE_SWEEPS = 8, 1, 2
+# phase V: attribution's wait_fraction against the device-timed one
+ATTRIBUTION_TOL = 0.02
 # the LM paths: SHAPES["prefill_32k"] (32 x 32768) cut to 2 x 8192 (for
 # h2o-danube, twice the 4096 window, so the window mask and the ring
 # cache both run), then 16 greedy steps; each model at its published
@@ -228,11 +254,18 @@ def sass_counts(lib: Path, opcodes: tuple) -> dict:
     return {op: sum(op in line for line in lines) for op in opcodes}
 
 
-def numpy_stencil(n: int, iters: int) -> np.ndarray:
-    """The paper's fig. 10 program, sequential, on the host in float64."""
+def numpy_grid(n: int, edge: float = 1.0) -> np.ndarray:
+    """The fig. 10 program's starting grid: zeros, its first row and
+    column ``edge``."""
     full = np.zeros((n + 2, n + 2))
-    full[0, :] = 1.0
-    full[:, 0] = 1.0
+    full[0, :] = edge
+    full[:, 0] = edge
+    return full
+
+
+def numpy_sweeps(full: np.ndarray, iters: int) -> np.ndarray:
+    """``iters`` sweeps of the fig. 10 program over ``full``, in place,
+    sequential, on the host in float64."""
     for _ in range(iters):
         acc = full[1:-1, 1:-1] + full[0:-2, 1:-1]
         acc += full[2:, 1:-1]
@@ -240,6 +273,11 @@ def numpy_stencil(n: int, iters: int) -> np.ndarray:
         acc += full[1:-1, 2:]
         full[1:-1, 1:-1] = 0.2 * acc
     return full
+
+
+def numpy_stencil(n: int, iters: int) -> np.ndarray:
+    """The paper's fig. 10 program, sequential, on the host in float64."""
+    return numpy_sweeps(numpy_grid(n), iters)
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -703,8 +741,11 @@ def phase_main_path(repro_torch, apps, ks) -> dict:
     return dict(launches=launches, fragments=frags)
 
 
-def phase_paper_regime(repro_torch, apps, ks) -> None:
+def phase_paper_regime(repro_torch, apps, ks) -> dict:
+    """Returns the ``sync="demand"`` run's timings, and the host-NumPy
+    grid both runs equal (``want``)."""
     want = numpy_stencil(PAPER_N, MAIN_ITERS)
+    out = {}
     for sync in ("demand", "barrier"):
         before = ks.launches["stencil5_block"]
         result, st, times, _ = run_stencil(
@@ -717,6 +758,8 @@ def phase_paper_regime(repro_torch, apps, ks) -> None:
             f"== host NumPy; makespan {st.makespan * 1e3:.3f} ms wait_fraction "
             f"{st.wait_fraction:.4f} ops/s {st.ops_per_sec:.1f} "
             f"drain+sync {times['drain_s']:.3f} s")
+        out.setdefault(sync, times)
+    return dict(out["demand"], want=want)
 
 
 def phase_overlap_probe(repro_torch, apps) -> None:
@@ -737,6 +780,352 @@ def phase_overlap_probe(repro_torch, apps) -> None:
         f"{st_on.wait_fraction:.4f} makespan {st_on.makespan * 1e3:.1f} ms | "
         f"blocking wait_fraction {st_off.wait_fraction:.4f} makespan "
         f"{st_off.makespan * 1e3:.1f} ms | results bit-identical")
+
+
+def profiled_device_s(window) -> dict:
+    """A torch.profiler window's device time in seconds: ``kernel_s``
+    (kernels but the stream gates), ``copy_s`` (memcpy and memset), of
+    it ``host_copy_s`` (the copies to and from the host: the tenants'
+    scatter and gather, which no gated pair may hold) and ``gate_s`` (the
+    gates: the device waiting on the host)."""
+    from torch.autograd import DeviceType
+
+    out = {"kernel_s": 0.0, "copy_s": 0.0, "host_copy_s": 0.0, "gate_s": 0.0}
+    for e in window.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None) or getattr(
+                e, "self_cuda_time_total", 0.0)
+            key = ("gate_s" if "gate_wait" in e.key else
+                   "copy_s" if e.key.startswith(("Memcpy", "Memset")) else "kernel_s")
+            out[key] += t / 1e6
+            if e.key.startswith(("Memcpy HtoD", "Memcpy DtoH")):
+                out["host_copy_s"] += t / 1e6
+    return out
+
+
+def serve_fn(repro_torch, apps, host):
+    """One tenant request: scatter ``host`` (the tenant's grid), record
+    SERVE_SWEEPS sweeps of the flagship's body over it, return the grid."""
+    def fn():
+        return apps.stencil_sweeps(repro_torch.array(host), SERVE_SWEEPS)
+    return fn
+
+
+def run_serve(repro_torch, apps, grids, max_inflight, profile=False) -> dict:
+    """SERVE_TENANTS closed-loop tenant threads against one Server on the
+    card, SERVE_REQUESTS requests each, the next request on the grid the
+    last one returned.  Returns the results per tenant, the merged
+    latency histogram, the admission counters, the executor's
+    device-clock totals and Python's garbage-collection passes during the
+    load (the longest stall a gate holder may meet); with ``profile``,
+    the profiler's device time over the load (:func:`profiled_device_s`)."""
+    import contextlib
+    import gc
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+
+    from repro_torch.serve import LatencyHistogram
+
+    srv = repro_torch.Server(
+        nprocs=MAIN_PROCS, block_size=PAPER_BLOCK, fusion=True, device=DEVICE,
+        flush="async", channel="async", sync="demand", backend="torch",
+        max_inflight=max_inflight, max_queue=len(grids))
+    results = [[] for _ in grids]
+    errors = []
+
+    def client(i: int) -> None:
+        host = grids[i]
+        sess = srv.session(f"tenant-{i}")
+        try:
+            for _ in range(SERVE_REQUESTS):
+                host = sess.request(serve_fn(repro_torch, apps, host)).result()
+                results[i].append(host)
+        except BaseException as exc:  # noqa: BLE001 - raised below
+            errors.append((i, exc))
+
+    gc_passes = []  # (generation, seconds)
+
+    def on_gc(phase, info, started=[0.0]):
+        if phase == "start":
+            started[0] = time.perf_counter()
+        else:
+            gc_passes.append((info["generation"], time.perf_counter() - started[0]))
+
+    threads = [threading.Thread(target=client, args=(i,), name=f"tenant-{i}")
+               for i in range(len(grids))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    window = profiler(activities=[ProfilerActivity.CUDA]) if profile else contextlib.nullcontext()
+    with srv:
+        with window:
+            gc.callbacks.append(on_gc)
+            try:
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                gc.callbacks.remove(on_gc)
+        if errors:
+            raise RuntimeError(f"tenant {errors[0][0]} failed") from errors[0][1]
+        ex = srv.runtime._exec_executor_obj
+        clock = ex._clock
+        out = dict(
+            results=results, wall_s=wall, peak=torch.cuda.max_memory_allocated(),
+            compute_s=sum(w.stats.compute_busy for w in ex.workers),
+            host_s=sum(w.stats.host_busy for w in ex.workers),
+            gate_timeouts=sum(w.stats.gate_timeouts for w in ex.workers),
+            timeout_log=list(clock.timeout_log) if clock else [],
+            max_hold_s=clock.max_hold_s if clock else 0.0, nworkers=ex.nworkers,
+            lock_hold_p50_s=srv.lock_hold.quantile(0.5),
+            plan_p50_s=srv.plan_time.quantile(0.5), gc_passes=len(gc_passes),
+            gc_longest=max(gc_passes, key=lambda p: p[1], default=(None, 0.0)))
+        cache = srv.runtime._plan_cache
+        out["plan_cache"] = (cache.hits, cache.misses) if cache is not None else None
+    adm = srv.admission
+    hist = LatencyHistogram()
+    tenants = srv.stats()
+    for st in tenants.values():
+        hist.merge(st.latency)
+    out.update(hist=hist, n_admitted=adm.n_admitted, n_rejected=adm.n_rejected,
+               peak_inflight=adm.peak_inflight, tenants=tenants,
+               n_failed=sum(st.n_failed for st in tenants.values()))
+    if profile:
+        out.update(profiled_device_s(window))
+    return out
+
+
+def serve_barrier_reference(repro_torch, apps, grids) -> list:
+    """The tenants' requests, one after another, through one runtime with
+    a whole-graph barrier flush for each: the served results' second
+    reference."""
+    out = []
+    with repro_torch.runtime(nprocs=MAIN_PROCS, block_size=PAPER_BLOCK, fusion=True,
+                             device=DEVICE, flush="async", channel="async",
+                             sync="barrier") as rt:
+        for host in grids:
+            seq = []
+            for _ in range(SERVE_REQUESTS):
+                full = serve_fn(repro_torch, apps, host)()
+                rt.flush()
+                host = np.asarray(full)
+                seq.append(host)
+            out.append(seq)
+    return out
+
+
+def phase_serve(repro_torch, apps, ks) -> dict:
+    """The serving path at the paper's regime: SERVE_TENANTS tenants of a
+    Server on the card, serialised (max_inflight=1) and concurrent
+    (max_inflight=SERVE_TENANTS), each result held to host NumPy and to a
+    barrier-flush run bit for bit, every fused map on stencil5_group,
+    admission counted, no gate timing out; then the concurrent variant
+    once more under torch.profiler, its gated pairs within PAIR_FACTOR x
+    the profiler's kernel-and-copy time + PAIR_SLACK_S a pair.  Returns
+    the concurrent variant's stencil launches and fragments."""
+    from repro_torch.kernels import stream_gate
+
+    t_phase = time.perf_counter()
+    grids = [numpy_grid(PAPER_N, edge=1.0 + i) for i in range(SERVE_TENANTS)]
+    t0 = time.perf_counter()
+    want = []
+    for g in grids:
+        full, seq = g.copy(), []
+        for _ in range(SERVE_REQUESTS):
+            seq.append(numpy_sweeps(full, SERVE_SWEEPS).copy())
+        want.append(seq)
+    numpy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    barrier = serve_barrier_reference(repro_torch, apps, grids)
+    barrier_s = time.perf_counter() - t0
+    for i in range(SERVE_TENANTS):
+        for got, w in zip(barrier[i], want[i]):
+            assert np.array_equal(got, w), f"barrier run, tenant {i} != host NumPy"
+    n_req = SERVE_TENANTS * SERVE_REQUESTS
+    # the fused maps of a sweep: each of the (n/block)² output blocks in
+    # 9 fragments (interior, slivers, corners), as phase 3's 3456 = 6 x 576
+    expect_frags = n_req * SERVE_SWEEPS * 9 * (PAPER_N // PAPER_BLOCK) ** 2
+    log(f"[S] serving path: Server on cuda, {SERVE_TENANTS} closed-loop tenants x "
+        f"{SERVE_REQUESTS} requests, each request a scatter of the tenant's {PAPER_N + 2}² "
+        f"f64 grid ({(PAPER_N + 2) ** 2 * 8 / 1e6:.1f} MB), {SERVE_SWEEPS} jacobi_stencil "
+        f"sweeps and a gather; {MAIN_PROCS} processes, {PAPER_BLOCK}² blocks, fusion on, "
+        f"flush=async channel=async sync=demand; host NumPy {numpy_s:.3f} s, barrier-flush "
+        f"reference run {barrier_s:.3f} s (== host NumPy)")
+    info = {}
+    for label, inflight in (("serialised", 1), ("concurrent", SERVE_TENANTS)):
+        ks.reset_launches()
+        stream_gate.reset_launches()
+        r = run_serve(repro_torch, apps, grids, inflight)
+        pairs = stream_gate.launches["gate_wait"]
+        launches = ks.launches["stencil5_block"]
+        frags = sum(ks.fragment_shapes.values())
+        staged = sum(ks.staged_copies.values())
+        for i in range(SERVE_TENANTS):
+            assert len(r["results"][i]) == SERVE_REQUESTS
+            for k, (got, w, b) in enumerate(zip(r["results"][i], want[i], barrier[i])):
+                assert got.shape == w.shape and np.isfinite(got).all()
+                assert np.array_equal(got, w), f"{label}: tenant {i} request {k} != host NumPy"
+                assert np.array_equal(got, b), f"{label}: tenant {i} request {k} != barrier run"
+        assert frags == expect_frags, (label, frags, expect_frags)
+        assert 0 < launches < frags, (label, launches, frags)
+        assert staged == 0, (label, staged)
+        assert r["n_admitted"] + r["n_rejected"] == n_req and r["n_rejected"] == 0, r
+        assert r["n_failed"] == 0
+        assert r["gate_timeouts"] == len(r["timeout_log"])
+        h, wall = r["hist"], r["wall_s"]
+        log(f"[S] {label} (max_inflight={inflight}, max_queue={SERVE_TENANTS}): {n_req} "
+            f"requests in {wall:.3f} s = {n_req / wall:.3f} requests/s; latency p50 "
+            f"{h.p50 * 1e3:.1f} ms p95 {h.p95 * 1e3:.1f} ms p99 {h.p99 * 1e3:.1f} ms max "
+            f"{h.max * 1e3:.1f} ms; admitted {r['n_admitted']} rejected {r['n_rejected']} "
+            f"peak inflight {r['peak_inflight']}; == host NumPy and the barrier run, bit for bit")
+        log(f"    makespan (first request to last result) {wall * 1e3:.3f} ms; wait_fraction "
+            f"{1 - r['compute_s'] / (r['nworkers'] * wall):.4f}; compute_busy (device, gated "
+            f"pairs) {r['compute_s']:.4f} s over {pairs} pairs, device busy share "
+            f"{r['compute_s'] / wall:.4f}; host_busy {r['host_s']:.4f} s; peak device memory "
+            f"{r['peak'] / 1e9:.2f} GB; record-lock hold p50 {r['lock_hold_p50_s'] * 1e3:.2f} ms, "
+            f"plan p50 {r['plan_p50_s'] * 1e3:.2f} ms; plan cache (hits, misses) "
+            f"{r['plan_cache']}")
+        log(f"    stencil5_group: {frags} fragments (every fused map of the load) in {launches} "
+            f"launches, {frags / launches:.2f} a launch; staged copies {staged}")
+        for name, st in r["tenants"].items():
+            log(f"    {name}: {st.n_requests} requests, p50 {st.latency.p50 * 1e3:.1f} ms, "
+                f"wait_fraction {st.wait_fraction:.4f}, compute_busy {st.total_compute:.4f} s, "
+                f"gate_timeouts {st.gate_timeouts}")
+        log_gate_timeouts(r, pairs)
+        assert r["gate_timeouts"] == 0, f"{label}: {r['gate_timeouts']} gate timeouts"
+        info[label] = dict(launches=launches, fragments=frags)
+    # the concurrent variant once more, under the profiler: the pairs
+    # against the device's own time for kernels and copies
+    stream_gate.reset_launches()
+    r = run_serve(repro_torch, apps, grids, SERVE_TENANTS, profile=True)
+    pairs = stream_gate.launches["gate_wait"]
+    for i in range(SERVE_TENANTS):
+        for got, w in zip(r["results"][i], want[i]):
+            assert np.array_equal(got, w), f"profiled run: tenant {i} != host NumPy"
+    dev = r["kernel_s"] + r["copy_s"]
+    # what a pair may hold: kernels and device-to-device copies, never the
+    # tenants' copies to and from the host (those queue outside the pairs)
+    on_device = dev - r["host_copy_s"]
+    bound = PAIR_FACTOR * dev + PAIR_SLACK_S * pairs
+    tight = PAIR_FACTOR * on_device + PAIR_SLACK_S * pairs
+    log(f"[S] profiled concurrent run: torch.profiler (CUDA activity) kernels "
+        f"{r['kernel_s']:.4f} s + copies {r['copy_s']:.4f} s = {dev:.4f} s of device time "
+        f"over {r['wall_s']:.3f} s, of it copies to and from the host (scatter, gather) "
+        f"{r['host_copy_s']:.4f} s; the gates waited {r['gate_s']:.4f} s; gated pairs "
+        f"{r['compute_s']:.4f} s over {pairs} pairs: {r['compute_s'] / dev:.3f} x kernels and "
+        f"copies (bound {bound:.4f} s = {PAIR_FACTOR} x profiler + {PAIR_SLACK_S * 1e6:.0f} us "
+        f"a pair), {r['compute_s'] / on_device:.3f} x them without the host copies (bound "
+        f"{tight:.4f} s)")
+    log_gate_timeouts(r, pairs)
+    assert r["gate_timeouts"] == 0, f"profiled run: {r['gate_timeouts']} gate timeouts"
+    assert r["compute_s"] <= bound, (r["compute_s"], bound)
+    assert r["compute_s"] <= tight, ("a pair held host copies", r["compute_s"], tight)
+    log(f"[S] phase S took {time.perf_counter() - t_phase:.1f} s")
+    return info["concurrent"]
+
+
+def log_gate_timeouts(r: dict, pairs: int) -> None:
+    """A serve run's gates: timeouts, each named with its payload's kind
+    and cause, and the longest a payload held the gate."""
+    from repro_torch.exec.backend import _DeviceClock
+
+    gen, longest = r["gc_longest"]
+    log(f"    gated event pairs {pairs}, gate_timeouts {r['gate_timeouts']}, longest a "
+        f"payload held its gate {r['max_hold_s'] * 1e3:.3f} ms (limit "
+        f"{_DeviceClock.GATE_TIMEOUT_S * 1e3:.0f} ms); Python's GC ran {r['gc_passes']} "
+        f"passes during the load, the longest {longest * 1e3:.3f} ms (generation {gen})")
+    for kind, cause, held in r["timeout_log"]:
+        log(f"    gate timeout: {kind}: {cause} (held {held * 1e3:.3f} ms)")
+
+
+def phase_verify_trace(repro_torch, apps, paper: dict) -> None:
+    """The paper-regime stencil once with verify="full", the plan cache
+    and a trace export path: == host NumPy, no diagnostic over verified
+    flushes, every cached plan re-verified clean, the exported trace
+    valid, attribution's wait_fraction within ATTRIBUTION_TOL of the
+    device-timed WaitStats' and its compute the gated pairs' (no host
+    launch time); then the fig. 6 rendezvous schedule rejected before
+    any thread starts, and a well-ordered one run."""
+    import os
+    import tempfile
+    import threading
+
+    import torch
+
+    from repro_torch.api import ExecutionPolicy, RuntimeConfig
+    from repro_torch.exec.backend import DeadlockError, run_rendezvous_bsp_async
+
+    want = paper["want"]
+    cfg = RuntimeConfig(nprocs=MAIN_PROCS, block_size=PAPER_BLOCK, fusion=True,
+                        device=DEVICE)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        policy = ExecutionPolicy(flush="async", channel="async", backend="torch",
+                                 verify="full", plan_cache=True, trace=path)
+        with repro_torch.runtime(cfg, policy) as rt:
+            t0 = time.perf_counter()
+            full = apps.jacobi_stencil(n=PAPER_N, iters=MAIN_ITERS)
+            t1 = time.perf_counter()
+            repro_torch.evaluate(full).block_until_ready()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            result = np.asarray(full)
+            st = rt.stats()
+            vs = rt.verify_stats
+            reports = rt.verify_cached_plans()  # raises on an error finding
+            tracer = rt.tracer
+        summary = repro_torch.validate_trace(path)  # exported at close
+        size = os.path.getsize(path)
+    assert np.array_equal(result, want), "verified run != host NumPy"
+    assert vs.n_flushes_verified > 0 and vs.n_diagnostics == 0, vs
+    assert reports and all(r.ok for r in reports), reports
+    rep = repro_torch.attribution(tracer)
+    gap = abs(rep.wait_fraction - st.wait_fraction)
+    drain_s = t2 - t1
+    log(f"[V] verify='full', plan_cache, trace export: jacobi_stencil n={PAPER_N} "
+        f"iters={MAIN_ITERS} block={PAPER_BLOCK} on cuda == host NumPy; "
+        f"{vs.n_flushes_verified} flushes verified, {vs.n_diagnostics} diagnostics, "
+        f"{len(reports)} cached plans re-verified clean; verify_seconds "
+        f"{vs.verify_seconds:.4f} s = {vs.verify_seconds / drain_s:.4f} of drain+sync "
+        f"{drain_s:.3f} s (record {t1 - t0:.3f} s); unverified phase 4 drain+sync "
+        f"{paper['drain_s']:.3f} s")
+    log(f"    race oracle: {vs.n_race_checks} checks, {vs.n_key_conflicts} key-level "
+        f"conflicts, {vs.n_region_false_positives} region-level false positives, precision "
+        f"{vs.precision}")
+    log(f"    trace: {tracer.n_emitted} events ({tracer.dropped} dropped), exported "
+        f"{summary['n_events']} trace events, {size / 1e6:.2f} MB; validate_trace ok")
+    log(f"    attribution wait_fraction {rep.wait_fraction:.6f} vs WaitStats "
+        f"{st.wait_fraction:.6f} (|gap| {gap:.6f}, tol {ATTRIBUTION_TOL}); compute "
+        f"charged {rep.total_compute:.6f} s vs gated pairs {st.total_compute:.6f} s "
+        f"(host_busy {st.total_host:.4f} s, not charged)")
+    for line in rep.format(5).splitlines():
+        log(f"    {line}")
+    assert gap <= ATTRIBUTION_TOL, (rep.wait_fraction, st.wait_fraction)
+    assert abs(rep.total_compute - st.total_compute) <= 1e-6, (
+        rep.total_compute, st.total_compute)
+    p0 = [{"kind": "recv", "tag": "x", "peer": 1}, {"kind": "send", "tag": "y", "peer": 1}]
+    p1 = [{"kind": "recv", "tag": "y", "peer": 0}, {"kind": "send", "tag": "x", "peer": 0}]
+    before = threading.active_count()
+    try:
+        run_rendezvous_bsp_async([p0, p1])
+    except DeadlockError as exc:
+        assert "statically at plan time" in str(exc), exc
+        assert threading.active_count() == before
+    else:
+        raise AssertionError("the fig. 6 schedule was not rejected")
+    ok = [[{"kind": "send", "tag": "y", "peer": 1}, {"kind": "compute"},
+           {"kind": "recv", "tag": "x", "peer": 1}],
+          [{"kind": "recv", "tag": "y", "peer": 0}, {"kind": "send", "tag": "x", "peer": 0}]]
+    steps = run_rendezvous_bsp_async(ok)
+    assert steps == 5, steps
+    log(f"    run_rendezvous_bsp_async: the fig. 6 schedule rejected statically before any "
+        f"thread started; a well-ordered schedule ran its {steps} steps")
 
 
 def sweep_fragments(torch, gen, n: int, block: int) -> list:
@@ -1344,9 +1733,17 @@ def main() -> int:
     rec_err = phase_recurrent_vs_plain(ssd, wkv, fa, torch, gen)
     torch.cuda.empty_cache()
     main_info = phase_main_path(repro_torch, apps, ks)
-    phase_paper_regime(repro_torch, apps, ks)
+    paper = phase_paper_regime(repro_torch, apps, ks)
     phase_overlap_probe(repro_torch, apps)
+    serve_info = phase_serve(repro_torch, apps, ks)
+    phase_verify_trace(repro_torch, apps, paper)
+    torch.cuda.empty_cache()
     records = phase_times(ks, torch, gen, main_info, err)
+    for rec in records:
+        if rec["name"].startswith("stencil5_block"):
+            # this slice's path: phase S's concurrent variant, counted from 0
+            rec["serve_launches"] = serve_info["launches"]
+            rec["serve_fragments"] = serve_info["fragments"]
     torch.cuda.empty_cache()
     launches = {}
     # every bf16 flash launch of a prefill goes to the wgmma kernel, every

@@ -25,6 +25,7 @@ _API_EXPORTS = (
     "runtime",
     "RuntimeConfig",
     "ExecutionPolicy",
+    "ServeConfig",
     "Runtime",
     "FlushTicket",
     "current_runtime",
@@ -44,6 +45,14 @@ _API_EXPORTS = (
     "register_pass",
     "get_pass",
     "available_passes",
+    "register_rule",
+    "get_rule",
+    "available_rules",
+    "check",
+    "Diagnostic",
+    "AnalysisReport",
+    "VerificationError",
+    "VerifyStats",
     "DistArray",
     "array",
     "empty",
@@ -58,6 +67,16 @@ _API_EXPORTS = (
     "format_stats",
     "trace",
     "TraceCollector",
+    "export_trace",
+    "validate_trace",
+    "attribution",
+    "AttributionReport",
+    "Server",
+    "Session",
+    "Request",
+    "TenantStats",
+    "AdmissionError",
+    "LatencyHistogram",
 )
 
 __all__ = list(_API_EXPORTS)

@@ -39,20 +39,23 @@ modules register their plugins with :mod:`repro_torch.api.registry` at import
 time, so the registry layer must stay importable from inside
 ``repro_torch.core`` without cycling back through the array layer.
 """
-from .config import ExecutionPolicy, RuntimeConfig, runtime
+from .config import ExecutionPolicy, RuntimeConfig, ServeConfig, runtime
 from .futures import ArrayFuture, evaluate, gather, wait
 from .registry import (
     available_backends,
     available_channels,
     available_passes,
+    available_rules,
     available_schedulers,
     get_backend,
     get_channel,
     get_pass,
+    get_rule,
     get_scheduler,
     register_backend,
     register_channel,
     register_pass,
+    register_rule,
     register_scheduler,
 )
 from .reporting import format_stats
@@ -76,9 +79,29 @@ _CORE_EXPORTS = {
     "ClusterSpec": "repro_torch.core.timeline",
     "GIGE_2012": "repro_torch.core.timeline",
     "TPU_V5E_ICI": "repro_torch.core.timeline",
-    # observability (repro_torch.obs): lifecycle tracing
+    # observability (repro_torch.obs): lifecycle tracing, Perfetto export,
+    # wait attribution
     "trace": "repro_torch.obs",
     "TraceCollector": "repro_torch.obs",
+    "export_trace": "repro_torch.obs",
+    "validate_trace": "repro_torch.obs",
+    "attribution": "repro_torch.obs",
+    "AttributionReport": "repro_torch.obs",
+    # static analysis (repro_torch.analysis): plan verifier, race oracle,
+    # deadlock detection — ExecutionPolicy(verify=...) runs it per flush
+    "check": "repro_torch.analysis",
+    "Diagnostic": "repro_torch.analysis",
+    "AnalysisReport": "repro_torch.analysis",
+    "VerificationError": "repro_torch.analysis",
+    "VerifyStats": "repro_torch.analysis",
+    # multi-tenant serving runtime (repro_torch.serve): one shared Runtime,
+    # concurrent per-request cone drains, admission control
+    "Server": "repro_torch.serve",
+    "Session": "repro_torch.serve",
+    "Request": "repro_torch.serve",
+    "TenantStats": "repro_torch.serve",
+    "AdmissionError": "repro_torch.serve",
+    "LatencyHistogram": "repro_torch.serve",
 }
 
 __all__ = [
@@ -86,6 +109,7 @@ __all__ = [
     "runtime",
     "RuntimeConfig",
     "ExecutionPolicy",
+    "ServeConfig",
     # demand-driven evaluation (futures surface)
     "ArrayFuture",
     "evaluate",
@@ -104,6 +128,9 @@ __all__ = [
     "register_pass",
     "get_pass",
     "available_passes",
+    "register_rule",
+    "get_rule",
+    "available_rules",
     # reporting
     "format_stats",
     # lazy core re-exports

@@ -37,7 +37,7 @@ from repro_torch.core.timeline import ClusterSpec
 
 from . import registry
 
-__all__ = ["RuntimeConfig", "ExecutionPolicy", "runtime"]
+__all__ = ["RuntimeConfig", "ExecutionPolicy", "ServeConfig", "runtime"]
 
 
 class _Replaceable:
@@ -104,15 +104,19 @@ class ExecutionPolicy(_Replaceable):
     # programs and all paper figures bit-identical).  "auto" = demand
     # under flush="async", barrier under the simulator.
     sync: str = "auto"
-    # lifecycle tracing (repro_torch.obs): False disables (the default —
-    # a true no-op), True collects into a ring buffer inspectable via
-    # ``Runtime.tracer``; an export path raises NotImplementedError until
-    # the exporter is ported.  REPRO_TRACE=1 enables it from the
-    # environment without touching the policy.
+    # lifecycle tracing (repro_torch.obs): False disables (the default — a true
+    # no-op), True collects into a ring buffer inspectable via
+    # ``Runtime.tracer``, a string additionally exports Chrome-trace JSON
+    # to that path when the runtime closes.  REPRO_TRACE=1 (or =path)
+    # enables it from the environment without touching the policy.
     trace: Union[bool, str] = False
-    # static verification: "off" trusts the pass pipeline; "plan" and
-    # "full" (the plan verifier and race oracle) need the analysis rules,
-    # which are not ported yet — the Runtime raises NotImplementedError.
+    # static verification (repro_torch.analysis): "off" trusts the pass
+    # pipeline, "plan" proves every flush's planned op list preserves
+    # the recorded happens-before order (§5.7) before it executes,
+    # "full" additionally runs the region-level race oracle over
+    # in-flight concurrent drains.  An error-severity finding raises
+    # repro_torch.analysis.VerificationError and aborts the flush.
+    # REPRO_VERIFY=plan|full enables it from the environment.
     verify: str = "off"
     # work stealing on the async executor's worker pool (arXiv 1805.01768
     # regime): an idle worker steals from the longest peer queue holding
@@ -234,6 +238,40 @@ class ExecutionPolicy(_Replaceable):
         if self.channel is not None:
             return self.channel
         return "async" if self.scheduler == "latency_hiding" else "blocking"
+
+
+_CONFIG_FIELDS = {f.name for f in dataclasses.fields(RuntimeConfig)}
+_POLICY_FIELDS = {f.name for f in dataclasses.fields(ExecutionPolicy)}
+
+@dataclass(frozen=True)
+class ServeConfig(_Replaceable):
+    """Admission control for the multi-tenant serving runtime
+    (:class:`repro_torch.serve.Server`).
+
+    ``max_inflight`` bounds the number of request cones draining
+    concurrently on the shared worker pool; ``max_queue`` bounds the
+    admission queue — a request arriving with the queue full is shed
+    immediately with :class:`repro_torch.serve.AdmissionError` (the clear
+    rejection signal; clients retry with backoff).  ``admission_timeout``
+    (seconds, ``None`` = wait forever) bounds how long an admitted-queue
+    request may wait for an in-flight slot before it too is rejected."""
+
+    max_inflight: int = 8
+    max_queue: int = 64
+    admission_timeout: Optional[float] = None
+
+    def __post_init__(self):
+        if self.max_inflight < 1:
+            raise ValueError(
+                f"max_inflight must be >= 1, got {self.max_inflight}"
+            )
+        if self.max_queue < 0:
+            raise ValueError(f"max_queue must be >= 0, got {self.max_queue}")
+        if self.admission_timeout is not None and self.admission_timeout <= 0:
+            raise ValueError(
+                f"admission_timeout must be positive seconds or None, "
+                f"got {self.admission_timeout}"
+            )
 
 
 _CONFIG_FIELDS = {f.name for f in dataclasses.fields(RuntimeConfig)}

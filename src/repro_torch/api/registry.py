@@ -19,6 +19,11 @@ Four registries, one per extension point:
   in place and/or sets executor hints — see ``docs/architecture.md``
   for the contract (a pass must preserve the relative program order of
   every pair of conflicting accesses it keeps).
+* **rules** — static-analysis rules run by :func:`repro_torch.analysis.check`
+  over recorded/planned graphs (``repro_torch.analysis.rules``: ``"plan"``,
+  ``"races"``, ``"deadlock"``).  An entry is a callable ``fn(ctx:
+  AnalysisContext) -> None`` that appends
+  :class:`~repro_torch.analysis.Diagnostic` objects to ``ctx.diagnostics``.
 
 Registration replaces the old ``make_backend`` / ``make_channel``
 if-else ladders: a new transport or an autotuned backend plugs in with
@@ -51,6 +56,9 @@ __all__ = [
     "register_pass",
     "get_pass",
     "available_passes",
+    "register_rule",
+    "get_rule",
+    "available_rules",
 ]
 
 
@@ -125,6 +133,7 @@ BACKENDS = Registry("backend", ("repro_torch.exec.backend",))
 CHANNELS = Registry("channel", ("repro_torch.exec.channels",))
 SCHEDULERS = Registry("scheduler", ("repro_torch.core.scheduler",))
 PASSES = Registry("pass", ("repro_torch.core.plan", "repro_torch.core.fusion"))
+RULES = Registry("rule", ("repro_torch.analysis.rules",))
 
 
 def register_backend(name: str, factory: Optional[Callable] = None, **kw):
@@ -169,6 +178,24 @@ def get_pass(name: str) -> Callable:
 
 def available_passes() -> list[str]:
     return PASSES.available()
+
+
+def register_rule(name: str, fn: Optional[Callable] = None, **kw):
+    """Register a static-analysis rule: ``fn(ctx: AnalysisContext) ->
+    None``.  The rule inspects the context's pre-/post-plan snapshots
+    (or cone footprints, or the cross-rank message schedule) and
+    appends :class:`~repro_torch.analysis.Diagnostic` objects to
+    ``ctx.diagnostics``; a rule must no-op when its inputs are absent
+    so ``repro_torch.analysis.check`` can run any subset."""
+    return RULES.register(name, fn, **kw)
+
+
+def get_rule(name: str) -> Callable:
+    return RULES.get(name)
+
+
+def available_rules() -> list[str]:
+    return RULES.available()
 
 
 def register_scheduler(name: str, fn: Optional[Callable] = None, **kw):

@@ -21,7 +21,7 @@ from repro_torch.core import Runtime
 from repro_torch.core import darray as dnp
 from repro_torch.kernels.stencil import jacobi_sweep
 
-__all__ = ["APPS", "run_app", "jacobi_sweeps"]
+__all__ = ["APPS", "run_app", "jacobi_sweeps", "stencil_sweeps"]
 
 
 # ---------------------------------------------------------------------------
@@ -220,6 +220,12 @@ def jacobi_stencil(n=4096, iters=6):
     full = dnp.zeros((n + 2, n + 2))
     full[0, :] = 1.0
     full[:, 0] = 1.0
+    return stencil_sweeps(full, iters)
+
+
+def stencil_sweeps(full, iters):
+    """:func:`jacobi_stencil`'s body: ``iters`` 5-point sweeps of the
+    interior of ``full`` (an (n+2)² DistArray), in place; returns it."""
     for _ in range(iters):
         work = 0.2 * (
             full[1:-1, 1:-1]

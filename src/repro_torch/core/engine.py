@@ -29,9 +29,11 @@ flush (the simulator default).
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
 import threading
+import time as _time
 import weakref
 from dataclasses import dataclass, field
 from typing import Optional, Sequence, Union
@@ -330,10 +332,10 @@ class FlushTicket:
     resolves, and ``add_done_callback`` queues callbacks until then."""
 
     __slots__ = ("_rt", "_fut", "_stats", "_resolved", "_tag", "_keys",
-                 "_exc", "_lock", "_bound", "_callbacks")
+                 "_regions", "_exc", "_lock", "_bound", "_callbacks")
 
     def __init__(self, rt: "Runtime", fut=None, stats=None, tag=None, keys=None,
-                 pending=False):
+                 regions=None, pending=False):
         self._rt = rt
         self._fut = fut  # repro_torch.exec Future -> WaitStats, or None
         self._stats = stats  # pre-completed result (sim flush / empty cone)
@@ -342,6 +344,9 @@ class FlushTicket:
         # cone access footprint (reads, writes) from cone_access_keys;
         # None = whole-graph flush (conflicts with everything)
         self._keys = keys
+        # region-precise footprint (cone_region_footprint), populated
+        # only under verify="full" — the race oracle's input
+        self._regions = regions
         self._exc: Optional[BaseException] = None
         self._lock = threading.Lock()
         # set once the ticket has either a future or a local resolution;
@@ -689,6 +694,14 @@ class Runtime:
         self._closed = False
 
         self.deps = DependencySystem()
+        # Device work the recording side issues outside the executor
+        # (scatter, fill, gather) queues under the executor's stream lock,
+        # so it never lands inside a gated event pair.  A synchronous copy
+        # queued behind a pair's stream gate also blocks the driver calls
+        # of the worker that holds the gate, until the gate times out
+        # (without this lock, chip_smoke.py phase S counted 439 timeouts
+        # in 12681 pairs of 8 concurrent tenants on the H100).
+        self._stream_lock = threading.Lock() if self.device.type == "cuda" else None
         # (base_id, coord) -> block tensor on self.device
         self.storage: dict[tuple, torch.Tensor] = {}
         self.scratch: dict[int, torch.Tensor] = {}
@@ -710,17 +723,13 @@ class Runtime:
             env = os.environ.get("REPRO_TRACE", "")
             if env not in ("", "0", "false", "False"):
                 trace = True if env in ("1", "true", "True") else env
-        if isinstance(trace, str):
-            raise NotImplementedError(
-                "trace export is not ported yet (ROADMAP: obs/export.py and "
-                "obs/attribution.py); use trace=True and read Runtime.tracer"
-            )
+        self.trace_path = trace if isinstance(trace, str) else None
         self._trace_requested = bool(trace)
         self._trace_owned = False
         self._trace_prev = None
         self.tracer = None
-        # -- static verification: a policy/kwarg request, or
-        # REPRO_VERIFY=plan|full from the environment (mirrors
+        # -- static verification (repro_torch.analysis): a policy/kwarg request,
+        # or REPRO_VERIFY=plan|full from the environment (mirrors
         # REPRO_TRACE: the env only applies when the kwarg stayed "off").
         if verify == "off":
             env = os.environ.get("REPRO_VERIFY", "")
@@ -728,11 +737,13 @@ class Runtime:
                 verify = env
         if verify not in ("off", "plan", "full"):
             raise ValueError(f"unknown verify {verify!r} (off|plan|full)")
+        self.verify_mode = verify
+        self.verify_stats = None
+        self.last_verify_report = None
         if verify != "off":
-            raise NotImplementedError(
-                f"verify={verify!r} needs the static analysis rules, which "
-                f"are not ported yet (ROADMAP: analysis/)"
-            )
+            from repro_torch.analysis import VerifyStats
+
+            self.verify_stats = VerifyStats()
         # -- plan-shape cache: a cone whose canonical structural signature
         # was planned (and verified) once replays the recorded rewrite
         # recipe instead of re-running the pass pipeline.  Kwarg wins;
@@ -746,8 +757,9 @@ class Runtime:
             from .plan_cache import PlanCache
 
             self._plan_cache = PlanCache()
-        # guards plan_stats: with the plan stage off the record lock,
-        # several submitting threads plan concurrently
+        # guards plan_stats / verify_stats / last_verify_report: with the
+        # plan stage off the record lock, several submitting threads
+        # plan (and verify) concurrently
         self._stats_lock = threading.Lock()
         # guards lazy executor/backend/channel construction (first
         # concurrent submit_cone calls race to build them)
@@ -862,6 +874,10 @@ class Runtime:
             if self._trace_owned:
                 _obs.deactivate(self._trace_prev)
                 self._trace_owned = False
+                if self.trace_path and self.tracer is not None:
+                    from repro_torch.obs.export import export_trace
+
+                    export_trace(self.tracer, self.trace_path)
         if err is not None:
             raise err
 
@@ -907,19 +923,27 @@ class Runtime:
         (eager, creation time)."""
         data = np.asarray(data, dtype=base.dtype).reshape(base.shape)
         for coord, sl in base.layout.blocks():
-            self.storage[(base.id, coord)] = torch.tensor(
-                data[sl], device=self.device
-            )
+            with self._device_work():
+                self.storage[(base.id, coord)] = torch.tensor(
+                    data[sl], device=self.device
+                )
 
     def fill_base(self, base: ArrayBase, value) -> None:
         dtype = to_torch_dtype(base.dtype)
         if isinstance(value, np.generic):
             value = value.item()
         for coord, _ in base.layout.blocks():
-            self.storage[(base.id, coord)] = torch.full(
-                base.layout.block_shape_at(coord), value, dtype=dtype,
-                device=self.device,
-            )
+            with self._device_work():
+                self.storage[(base.id, coord)] = torch.full(
+                    base.layout.block_shape_at(coord), value, dtype=dtype,
+                    device=self.device,
+                )
+
+    def _device_work(self):
+        """The lock host-side device work outside the executor takes
+        (``_stream_lock``; none on the CPU)."""
+        lock = self._stream_lock
+        return lock if lock is not None else contextlib.nullcontext()
 
     def gather(self, base: ArrayBase, view: ViewSpec) -> np.ndarray:
         """Read back a view (flushes first — §5.6 trigger 1).
@@ -949,7 +973,8 @@ class Runtime:
                     f"collected; keep a reference to the DistArray (or its "
                     f"ArrayFuture) until readback"
                 )
-            out[dst] = blk[frag.slices].cpu().numpy()
+            with self._device_work():
+                out[dst] = blk[frag.slices].cpu().numpy()
         return out
 
     # -- recording ------------------------------------------------------------
@@ -1287,6 +1312,20 @@ class Runtime:
         if self.passes:
             from .plan import plan as run_plan
 
+            pre_views = None
+            if self.verify_mode != "off":
+                # snapshot footprints BEFORE planning: passes rewrite
+                # payloads/accesses in place (fill→map const folding), so
+                # the pre-plan op objects are not a record of the pre-plan
+                # program — immutable OpViews are
+                from repro_torch.analysis import snapshot_ops
+
+                _t0 = _time.perf_counter()
+                pre_views = snapshot_ops(deps.pending_ops())
+                with self._stats_lock:
+                    self.verify_stats.verify_seconds += (
+                        _time.perf_counter() - _t0
+                    )
             planned = run_plan(
                 deps,
                 self.passes,
@@ -1297,10 +1336,13 @@ class Runtime:
             hints = planned.hints
             with self._stats_lock:
                 self.plan_stats.merge(planned.stats)
+            if pre_views is not None:
+                self._verify_plan(pre_views, planned, dead)
         self.flush_count += 1
         self._recorded_since_flush = self.deps.n_pending
         if self.flush_backend == "async":
-            ticket = self._flush_async(deps, hints, fid, keys=None)
+            ticket = self._flush_async(deps, hints, fid, keys=None,
+                                       regions=None)
             if wait:
                 res = ticket.wait()
                 self._barrier_cleanup()
@@ -1360,6 +1402,25 @@ class Runtime:
                 n_total=n_total,
                 empty_read=(read_keys, ids),
             )
+        regions = None
+        if self.verify_mode == "full":
+            # region-level race oracle against the in-flight drains,
+            # BEFORE the extraction commits: a failure aborts the flush
+            # with the recorded graph and every in-flight drain
+            # untouched.  It stays under the caller's record
+            # serialization because "in-flight" is defined by extraction
+            # order — and it stamps the regions on the pending ticket,
+            # so later extractions can race-check against this cone
+            # while it is still being planned off the lock.
+            from .graph import cone_region_footprint
+
+            _t0 = _time.perf_counter()
+            regions = cone_region_footprint(cone_ops)
+            self._verify_races(keys, regions)
+            with self._stats_lock:
+                self.verify_stats.verify_seconds += (
+                    _time.perf_counter() - _t0
+                )
         # a GC'd base only licenses dead-store elimination when no
         # *remainder* operation still touches it: the cone may hold a
         # dead temp's producer (pulled in as an anti-dependency) while
@@ -1375,7 +1436,8 @@ class Runtime:
         # with this one must find it and wait, even though its future
         # does not exist yet (extraction order is the total order
         # _join_conflicting's `before=` bound keys off)
-        ticket = FlushTicket(self, pending=True, tag=fid, keys=keys)
+        ticket = FlushTicket(self, pending=True, tag=fid, keys=keys,
+                             regions=regions)
         with self._ticket_lock:
             self._tickets.append(ticket)
         col = _obs.CURRENT
@@ -1395,7 +1457,7 @@ class Runtime:
         )
 
     def submit_cone(self, handle: PendingFlush, cleanup: bool = False) -> FlushTicket:
-        """Plan and submit an extracted cone — the half of a
+        """Plan, verify, and submit an extracted cone — the half of a
         cone flush that needs **no** record serialization: it touches
         only the :class:`PendingFlush`'s own state plus thread-safe
         runtime structures, so concurrent client threads may plan and
@@ -1426,6 +1488,8 @@ class Runtime:
             ticket._resolve_local()
             return
         deps = handle.deps
+        # (verify="full"'s race oracle already ran in extract_cone,
+        # under the record serialization that defines "in-flight")
         self._join_conflicting(handle.keys, before=ticket)
         deps, hints = self._plan_cone(handle)
         if self.flush_backend == "async":
@@ -1464,7 +1528,7 @@ class Runtime:
     def _plan_cone(self, handle: PendingFlush):
         """Plan stage of one extracted cone: plan-shape cache hit →
         replay the recorded rewrite recipe; miss → run the pass
-        pipeline, and insert the recipe.  Returns the planned
+        pipeline, verify, and insert the recipe.  Returns the planned
         ``(deps, hints)``.  Thread-safe: shared counters are folded
         under ``_stats_lock``, the cache locks internally."""
         deps = handle.deps
@@ -1493,16 +1557,23 @@ class Runtime:
             if col is not None:
                 col.plan_cache(handle.fid, False, len(pending))
         pre_views = None
-        pre_args = None
-        if sig is not None:
+        if self.verify_mode != "off" or sig is not None:
             # snapshot footprints BEFORE planning: passes rewrite
             # payloads/accesses in place, so the pre-plan op objects are
             # not a record of the pre-plan program — immutable OpViews
-            # are.  The cache keeps the snapshot so a cached plan stays
-            # re-verifiable once the analysis rules are ported.
+            # are.  The cache needs the same snapshot: a cached plan
+            # must stay re-verifiable on demand (verify_cached_plans).
             from repro_torch.analysis import snapshot_ops
 
+            _t0 = _time.perf_counter()
             pre_views = snapshot_ops(pending)
+            if self.verify_mode != "off":
+                with self._stats_lock:
+                    self.verify_stats.verify_seconds += (
+                        _time.perf_counter() - _t0
+                    )
+        pre_args = None
+        if sig is not None:
             # pre-plan map argument tuples: const folding mutates
             # MapPayload.args in place, so the diff against these is the
             # recipe's patch list
@@ -1516,6 +1587,8 @@ class Runtime:
         )
         with self._stats_lock:
             self.plan_stats.merge(planned.stats)
+        if self.verify_mode != "off":
+            self._verify_plan(pre_views, planned, handle.dead)
         if sig is not None:
             cache.insert(
                 sig,
@@ -1527,6 +1600,23 @@ class Runtime:
                 scratch_available=set(self.scratch),
             )
         return planned.deps, planned.hints
+
+    def verify_cached_plans(self):
+        """Re-run the static plan verifier over every resident
+        plan-cache entry (each was verified — or at least verifiable —
+        once at insert; this proves the cached recipes are *still*
+        sound on demand, e.g. from the ``graph-lint`` CI job).  Returns
+        the list of :class:`repro_torch.analysis.AnalysisReport`; raises
+        :class:`repro_torch.analysis.VerificationError` on any error-severity
+        finding."""
+        if self._plan_cache is None:
+            return []
+        from repro_torch.analysis import check_cached_plans
+
+        reports = check_cached_plans(self._plan_cache)
+        for r in reports:
+            r.raise_if_errors()
+        return reports
 
     @staticmethod
     def _resolve_targets(targets) -> set:
@@ -1559,14 +1649,15 @@ class Runtime:
                     ids.add((base.id, frag.block))
         return ids
 
-    def _flush_async(self, deps, hints, tag=None, keys=None) -> FlushTicket:
+    def _flush_async(self, deps, hints, tag=None, keys=None,
+                     regions=None) -> FlushTicket:
         """Submit ``deps`` to the persistent multi-worker executor
         (repro_torch.exec) and return the in-flight ticket without joining."""
         executor = self._ensure_executor()
         fut = executor.submit(
             deps, batch_dispatch=bool(hints.get("batch_dispatch")), tag=tag
         )
-        return FlushTicket(self, fut=fut, tag=tag, keys=keys)
+        return FlushTicket(self, fut=fut, tag=tag, keys=keys, regions=regions)
 
     def _submit_batch(self, batch) -> None:
         """Submit one batcher round — ``(deps, hints, ticket)`` triples
@@ -1626,6 +1717,7 @@ class Runtime:
                 steal_threshold=self.exec_steal_threshold,
                 steal_latency=self.exec_steal_latency,
                 device=self.device,
+                stream_lock=self._stream_lock,
             )
         return self._exec_executor_obj
 
@@ -1705,6 +1797,87 @@ class Runtime:
             if t is None:
                 return
             t.wait()  # propagates the conflicting drain's failure
+
+    # -- static verification (repro_torch.analysis) -------------------------
+    def _verify_plan(self, pre_views, planned, dead) -> None:
+        """verify="plan"/"full": prove the planned op list preserves the
+        recorded happens-before order before it reaches the executor.
+        Raises :class:`repro_torch.analysis.VerificationError` on any
+        error-severity finding — the flush aborts with nothing executed
+        (the cone was already extracted from the recorded graph, so the
+        runtime is not usable for further flushes after the raise;
+        verification failures are fatal by design)."""
+        from repro_torch.analysis import check
+
+        _t0 = _time.perf_counter()
+        report = check(
+            pre=pre_views,
+            post=planned.deps.pending_ops(),
+            dead_bases=dead,
+            provenance=planned.provenance,
+            dropped=planned.dropped,
+            scratch_available=set(self.scratch),
+            rules=("plan", "deadlock"),
+        )
+        with self._stats_lock:
+            stats = self.verify_stats
+            stats.verify_seconds += _time.perf_counter() - _t0
+            stats.n_flushes_verified += 1
+            stats.n_diagnostics += len(report.diagnostics)
+            self.last_verify_report = report
+        report.raise_if_errors()
+
+    def _verify_races(self, keys, regions) -> None:
+        """verify="full": the region-level soundness oracle for the
+        key-granular ``cones_conflict`` concurrency test.  A region-level
+        conflict that key-level conflict detection misses means two
+        drains the runtime would have run concurrently actually race —
+        an error.  The reverse (key conflict, no region conflict) is the
+        expected over-approximation; it is only *counted* (the precision
+        statistic feeding the sub-block cone-precision roadmap item)."""
+        from repro_torch.analysis.diagnostics import (
+            ERROR,
+            AnalysisReport,
+            Diagnostic,
+        )
+        from .graph import cones_conflict, region_footprints_conflict
+
+        stats = self.verify_stats
+        with self._ticket_lock:
+            inflight = [
+                t for t in self._tickets
+                if not t.done() and t._keys is not None
+                and t._regions is not None
+            ]
+        report = AnalysisReport(rules_run=("races",))
+        with self._stats_lock:
+            for t in inflight:
+                stats.n_race_checks += 1
+                kc = cones_conflict(t._keys, keys)
+                rk = region_footprints_conflict(t._regions, regions)
+                if rk is not None and not kc:
+                    report.diagnostics.append(Diagnostic(
+                        rule="races",
+                        severity=ERROR,
+                        message=(
+                            f"region-level conflict with in-flight drain "
+                            f"#{t._tag} that key-level cones_conflict missed "
+                            f"— the concurrent-drain oracle is unsound"
+                        ),
+                        ops=(t._tag,),
+                        key=rk,
+                    ))
+                elif kc:
+                    stats.n_key_conflicts += 1
+                    report.n_key_conflicts += 1
+                    if rk is None:
+                        stats.n_region_false_positives += 1
+                        report.n_region_false_positives += 1
+            if report.diagnostics:
+                stats.n_diagnostics += len(report.diagnostics)
+                self.last_verify_report = report
+        if report.diagnostics:
+            report.raise_if_errors()
 
     def _ticket_done(self, ticket: FlushTicket, res) -> None:
         with self._ticket_lock:

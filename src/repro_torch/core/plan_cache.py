@@ -27,10 +27,12 @@ The cache exploits that in two steps:
   nodes exactly as the passes would (same payloads, same access lists,
   same program order).
 
-A replay needs no re-planning: it is the same rewrite, re-targeted.
-The entry keeps the pre/post footprint snapshots, provenance, and drop
-records, so resident plans stay re-verifiable once the static analysis
-rules are ported (ROADMAP).
+Because the insert-time plan went through the static plan verifier (or
+is at least verifiable — the entry retains the pre/post footprint
+snapshots, provenance, and drop records), a replay needs no
+re-verification: it is the same rewrite, re-targeted.
+:meth:`Runtime.verify_cached_plans` re-checks every resident entry on
+demand (the graph lint for cached plans).
 
 Unknown payload kinds, unregistered passes, or rewrites the recipe
 language cannot express make a cone *uncacheable* — the cold path
@@ -227,8 +229,8 @@ def _apply_patch(op, patch) -> None:
 class PlanCacheEntry:
     """One cached plan shape: the replay recipe plus everything needed
     to re-verify the plan on demand (`pre`/`post` footprint snapshots,
-    rewrite provenance, drop records — the inputs of the plan and
-    deadlock rules, once those are ported)."""
+    rewrite provenance, drop records — the exact inputs of
+    ``repro_torch.analysis.check(rules=("plan", "deadlock"))``)."""
 
     steps: tuple  # ("keep", i, patch) | ("coalesce", idxs) | ("fuse", mi, ri, patch)
     dirty: bool  # did the insert-time plan rebuild the dependency system

@@ -296,8 +296,11 @@ class _DeviceClock:
     kernel: a pair times the payload's kernels and the device's own gaps
     between them, not the host's dispatch, and no other launch lands
     between its events, so the pairs add up to the device's busy time.
-    Work the recording thread launches outside the executor (scatter,
-    gather) is not held off and may fall inside a pair.
+    Device work the executor's owner issues outside it (the runtime's
+    scatter, fill and gather) takes ``stream_lock`` too: queued inside a
+    pair it would count there, and a synchronous copy queued behind a
+    gate blocks the gate holder's own driver calls until the gate times
+    out.
 
     A gate lets its stream go after ``GATE_TIMEOUT_S`` even if it is
     never opened: a payload that synchronises inside waits that out once
@@ -316,13 +319,18 @@ class _DeviceClock:
     long drain keeps a bounded number of live events."""
 
     MAX_PENDING = 64
-    # well above the host's time to queue a payload, GIL waits included
-    # (the switch interval is 5 ms), and far below a test's time limit
-    GATE_TIMEOUT_S = 0.05
+    # well above the host's longest stall inside a gated section, and far
+    # below a test's time limit.  With 8 serving tenants recording beside
+    # the drains, a gate holder waits out Python's generation-2 garbage
+    # collections, which hold the GIL for up to seconds (chip_smoke.py
+    # phase S prints the longest): a 50 ms limit timed such gates out, and
+    # their pairs counted host time.  The limit bounds only a payload that
+    # synchronises inside, which none on the runtime's paths does.
+    GATE_TIMEOUT_S = 5.0
 
-    def __init__(self, device: torch.device, nworkers: int):
+    def __init__(self, device: torch.device, nworkers: int, stream_lock=None):
         self.device = device
-        self.stream_lock = threading.Lock()
+        self.stream_lock = stream_lock if stream_lock is not None else threading.Lock()
         self._lock = threading.Lock()  # guards _pending, _free and the accounting
         self._pending = [collections.deque() for _ in range(nworkers)]
         self._free: list = []
@@ -377,7 +385,7 @@ class _DeviceClock:
         fraction)``), to each op's drain."""
         with self._lock:
             q = self._pending[rank]
-            q.append((*pair, wstats, shares))
+            q.append((*pair, wstats, shares, rank, _obs.CURRENT))
             oldest = q.popleft() if len(q) > self.MAX_PENDING else None
         if oldest is not None:
             oldest[1].synchronize()
@@ -386,13 +394,16 @@ class _DeviceClock:
 
     def _resolve(self, rec) -> None:
         """Account one complete pair (call with ``_lock`` held, once its
-        end event has completed).  An event pair that cannot be resolved
-        raises."""
-        start, end, epoch, (ops, fn_s, held), wstats, shares = rec
+        end event has completed), and hand its device time to the trace
+        collector that saw the unit launch.  An event pair that cannot be
+        resolved raises."""
+        start, end, epoch, (ops, fn_s, held), wstats, shares, rank, col = rec
         t = start.elapsed_time(end) / 1e3
         wstats.compute_busy += t
         for dstats, share in shares:
             dstats.compute_busy += t * share
+        if col is not None:
+            col.compute_device(ops[0].uid, rank, t)
         n = self._gate.timeouts()
         for i in range(self._timeouts_seen, n):
             self._timed_out.add(self._gate.timed_out_epoch(i))
@@ -519,13 +530,17 @@ class AsyncExecutor:
         steal_threshold: int = 4,
         steal_latency: float = 1e-4,
         device=None,
+        stream_lock=None,
     ):
         self.nworkers = nworkers
         self.backend = make_backend(backend, storage, scratch)
         # blocks on a CUDA device: compute is timed by device events, not
         # by the host's thread time (a launch returns once it is queued)
         device = torch.device("cpu" if device is None else device)
-        self._clock = _DeviceClock(device, nworkers) if device.type == "cuda" else None
+        # (``stream_lock``: the owner's, for device work it issues outside
+        # the executor — Runtime.scatter / gather)
+        self._clock = (_DeviceClock(device, nworkers, stream_lock)
+                       if device.type == "cuda" else None)
         # a channel instance may be shared across flushes (the owner closes
         # it); a name means this executor owns the channel's lifecycle
         self._owns_channel = isinstance(channel, str)
@@ -947,9 +962,6 @@ class AsyncExecutor:
             # run later against state a subsequent flush re-plans
             for w in self.workers:
                 w.discard(lambda op: getattr(op, "_drain", None) is drain)
-        col = _obs.CURRENT
-        if col is not None:
-            col.drain_end(drain.tag)
         if self._clock is not None:
             # the makespan ends when the device has finished the drain's
             # work, and its compute is known only then
@@ -960,6 +972,11 @@ class AsyncExecutor:
                     exc = err
                 else:
                     exc.add_note(f"device compute timing could not be settled: {err!r}")
+        # after settling: the trace's drain segment ends where the
+        # makespan does, and holds the drain's device-time events
+        col = _obs.CURRENT
+        if col is not None:
+            col.drain_end(drain.tag)
         elapsed = time.perf_counter() - drain.t0
         if exc is not None:
             drain.fut.set_exception(exc)
@@ -1119,21 +1136,35 @@ class AsyncExecutor:
 # ---------------------------------------------------------------------------
 
 
-def run_rendezvous_bsp_async(per_proc_programs: list[list[dict]]) -> int:
+def run_rendezvous_bsp_async(
+    per_proc_programs: list[list[dict]], static_check: bool = True
+) -> int:
     """Execute the paper's naive evaluation (fig. 6) with real threads:
     each rank walks its own operation list in order; sends and receives
     rendezvous through a :class:`RendezvousMailbox`.
 
     Well-ordered schedules complete and return the number of completed
-    steps.  Schedules like fig. 6's deadlock are detected structurally
-    at runtime (all live ranks parked on unmatched messages) and refused
-    with a :class:`DeadlockError` listing the stuck operation-nodes.
-    (The reference also rejects them statically at plan time, through
-    its analysis deadlock rule, which is not ported yet — ROADMAP.)  This is
+    steps.  Schedules like fig. 6's deadlock — rejected *statically at
+    plan time* by the ``repro_torch.analysis`` deadlock rule (a cycle in the
+    cross-rank message-match graph, or an unmatched message) before any
+    thread starts, and — for completeness with ``static_check=False`` —
+    also detected structurally at runtime (all live ranks parked on
+    unmatched messages).  Both paths refuse with a
+    :class:`DeadlockError` listing the stuck operation-nodes.  This is
     the contrast the flush executor exists for: the *same* data movement
     expressed as one-sided transfers in a dependency graph cannot
     deadlock (§5.7.1).
     """
+    if static_check:
+        from repro_torch.analysis import check
+
+        report = check(schedule=per_proc_programs, rules=("deadlock",))
+        if not report.ok:
+            raise DeadlockError(
+                "rendezvous-BSP schedule rejected statically at plan time "
+                "(repro_torch.analysis deadlock rule):\n"
+                + "\n".join(d.message for d in report.errors)
+            )
     n = len(per_proc_programs)
     mailbox = RendezvousMailbox(n)
     steps = [0] * n

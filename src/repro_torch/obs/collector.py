@@ -131,8 +131,8 @@ class TraceCollector:
     def op_dropped(self, pass_name: str, op) -> None:
         """A plan pass eliminated ``op`` outright (dead-store
         elimination); extra = the pass name.  Together with
-        ``rewritten`` this is the complete rewrite provenance a static
-        plan verifier consumes."""
+        ``rewritten`` this is the complete rewrite provenance the
+        static plan verifier (repro_torch.analysis) consumes."""
         if op.uid not in self.ops:
             self.ops[op.uid] = (op.kind, op.label, op.nbytes)
         self.n_emitted += 1
@@ -259,6 +259,17 @@ class TraceCollector:
              time.thread_time())
         )
 
+    def compute_device(self, uid, worker, seconds: float) -> None:
+        """Device seconds of one compute unit (a payload or a grouped
+        launch) whose first op is ``uid``, emitted when its gated event
+        pair resolves at the end of the drain (CUDA blocks only).
+        Attribution charges these in place of the unit's CPU delta."""
+        self.n_emitted += 1
+        self.events.append(
+            (time.perf_counter() - self.t0, "compute-device", uid, worker,
+             seconds)
+        )
+
     # -- channel messages --------------------------------------------------
     def msg_posted(self, op, chan: str) -> None:
         uid = op.uid
@@ -340,23 +351,19 @@ def current_tracer() -> Optional[TraceCollector]:
 class trace:
     """Context manager enabling tracing for a region of the program::
 
-        with repro_torch.trace() as tr:
+        with repro_torch.trace("run_trace.json") as tr:
             ... record / flush / gather ...
-        # on exit: tracing restored; tr holds the events
+        # on exit: tracing restored, trace exported to the given path
 
-    Runtimes entered while a ``trace()`` region is active adopt the
-    ambient collector instead of creating their own, so one trace can
-    span several runtimes (or one runtime several regions).  Exporting
-    to a file is not ported yet (ROADMAP: obs/export.py): a ``path``
-    raises ``NotImplementedError``.
+    ``path=None`` skips the export — inspect the returned collector with
+    :func:`repro_torch.obs.attribution` / :func:`repro_torch.obs.export_trace`
+    yourself.  Runtimes entered while a ``trace()`` region is active
+    adopt the ambient collector instead of creating their own, so one
+    trace can span several runtimes (or one runtime several regions).
     """
 
     def __init__(self, path: Optional[str] = None, capacity: int = DEFAULT_CAPACITY):
-        if path is not None:
-            raise NotImplementedError(
-                "trace export is not ported yet (ROADMAP: obs/export.py and "
-                "obs/attribution.py); use trace() and read the collector"
-            )
+        self.path = path
         self.collector = TraceCollector(capacity=capacity)
         self._prev: Optional[TraceCollector] = None
 
@@ -366,4 +373,8 @@ class trace:
 
     def __exit__(self, exc_type, exc, tb):
         deactivate(self._prev)
+        if self.path is not None and exc_type is None:
+            from .export import export_trace
+
+            export_trace(self.collector, self.path)
         return False

@@ -573,3 +573,156 @@ def test_recurrent_lm_prefill_kernels_match_torch_twins(cuda, arch, kw, counts):
     for a, b in zip(*outs):
         assert torch.isfinite(a).all()
         assert (a - b).abs().max().item() < 1e-3
+
+
+def _numpy_sweeps(full, iters):
+    """The fig. 10 sweeps on the host in float64 (chip_smoke.numpy_sweeps)."""
+    for _ in range(iters):
+        acc = full[1:-1, 1:-1] + full[0:-2, 1:-1]
+        acc += full[2:, 1:-1]
+        acc += full[1:-1, 0:-2]
+        acc += full[1:-1, 2:]
+        full[1:-1, 1:-1] = 0.2 * acc
+    return full
+
+
+def test_server_tenants_on_gpu_bit_identical_through_stencil5_group(cuda):
+    """Two tenants of a small Jacobi request on a Server on the card, each
+    on its own grid (a request scatters it, sweeps twice and gathers it):
+    every result equals host NumPy bit for bit, every fused map went to
+    stencil5_group, and no gate timed out."""
+    import threading
+
+    import repro_torch
+    from repro_torch.kernels import stream_gate
+
+    n, block, sweeps, requests = 256, 64, 2, 2
+    grids = []
+    for i in range(2):
+        g = np.zeros((n + 2, n + 2))
+        g[0, :] = g[:, 0] = 1.0 + i
+        grids.append(g)
+    results, errors = [[], []], []
+    ks.reset_launches()
+    stream_gate.reset_launches()
+    with repro_torch.Server(nprocs=4, block_size=block, fusion=True, device="cuda",
+                            flush="async", channel="async", sync="demand",
+                            max_inflight=2, max_queue=2) as srv:
+        def client(i):
+            host = grids[i]
+            sess = srv.session(f"t{i}")
+            try:
+                for _ in range(requests):
+                    def fn(h=host):
+                        return apps.stencil_sweeps(repro_torch.array(h), sweeps)
+                    host = sess.request(fn).result()
+                    results[i].append(host)
+            except BaseException as exc:  # noqa: BLE001 - asserted below
+                errors.append(exc)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120.0)
+        assert not any(t.is_alive() for t in threads) and not errors, errors
+        ex = srv.runtime._exec_executor_obj
+        timeouts = sum(w.stats.gate_timeouts for w in ex.workers)
+        log = list(ex._clock.timeout_log)
+        tenants = srv.stats()
+    for i in range(2):
+        want = grids[i].copy()
+        for got in results[i]:
+            _numpy_sweeps(want, sweeps)
+            assert np.array_equal(got, want), i
+    frags = sum(ks.fragment_shapes.values())
+    assert frags == 2 * requests * sweeps * 9 * (n // block) ** 2
+    assert 0 < ks.launches["stencil5_block"] < frags
+    assert stream_gate.launches["gate_wait"] > 0
+    assert timeouts == 0 and log == [], log
+    assert all(st.gate_timeouts == 0 and st.n_failed == 0 for st in tenants.values())
+
+
+def test_attribution_on_gpu_charges_device_time_not_host_time(cuda):
+    """A traced drain whose payloads spend ~10 ms of host CPU between two
+    ~0.2 ms kernels: attribution charges the gated pairs' device time
+    (equal to compute_busy), not the host's, and its wait_fraction agrees
+    with the device-timed WaitStats within 0.02."""
+    import time
+
+    import repro_torch
+    from repro_torch.core.graph import COMPUTE, AccessNode, DependencySystem, OperationNode
+    from repro_torch.exec import AsyncExecutor, ComputeBackend
+
+    cycles = _sleep_cycles(0.2)
+
+    class Backend(ComputeBackend):
+        def execute(self, op):
+            torch.cuda._sleep(cycles)
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 0.01:  # host work, on the CPU
+                pass
+            torch.cuda._sleep(cycles)
+
+    n_ops = 8
+    deps = DependencySystem()
+    for i in range(n_ops):
+        op = OperationNode(COMPUTE, None, procs=(i % 2,))
+        op.add_access(AccessNode(("b", i), None, write=True))
+        deps.insert(op)
+    with repro_torch.trace() as tr:
+        ex = AsyncExecutor(2, {}, {}, backend=Backend({}, {}), device="cuda")
+        try:
+            st = ex.run(deps)
+        finally:
+            ex.close()
+    rep = repro_torch.attribution(tr)
+    assert st.gate_timeouts == 0
+    assert sum(1 for e in tr.events if e[1] == "compute-device") == n_ops
+    assert rep.total_compute == pytest.approx(st.total_compute, abs=1e-6)
+    assert rep.total_compute <= 0.6e-3 * n_ops, rep.total_compute
+    assert abs(rep.wait_fraction - st.wait_fraction) <= 0.02
+    repro_torch.validate_trace(repro_torch.export_trace(tr))
+
+
+def test_copies_on_another_thread_hold_no_gate_to_its_timeout(cuda):
+    """A drain in flight while another thread scatters host arrays onto
+    the card and gathers them back (a serving tenant's copies): the
+    copies queue under the runtime's stream lock, so none waits behind a
+    gated pair and blocks its holder until the gate times out; no pair
+    times out, and every copy and the drain's result are exact."""
+    import threading
+
+    import repro_torch
+    from repro_torch.core import engine
+
+    n = 512
+    host = np.random.default_rng(3).standard_normal((256, 256))
+    with repro_torch.runtime(nprocs=8, block_size=64, fusion=True, device="cuda",
+                             flush="async", channel="async", sync="demand") as rt:
+        full = apps.jacobi_stencil(n=n, iters=10)
+        ticket = rt.flush(wait=False, targets=[full])
+        copies, errors = [0], []
+
+        def tenant():
+            engine._tls.runtime = rt
+            try:
+                while not ticket.done():
+                    a = repro_torch.array(host)
+                    assert np.array_equal(np.asarray(a), host)
+                    copies[0] += 1
+            except BaseException as exc:  # noqa: BLE001 - asserted below
+                errors.append(exc)
+
+        t = threading.Thread(target=tenant)
+        t.start()
+        st = ticket.wait()
+        t.join(60.0)
+        assert not t.is_alive() and not errors, errors
+        log = list(rt._exec_executor_obj._clock.timeout_log)
+        got = np.asarray(full)
+    assert copies[0] > 0
+    assert st.gate_timeouts == 0 and log == [], log
+    want = np.zeros((n + 2, n + 2))
+    want[0, :] = want[:, 0] = 1.0
+    assert np.array_equal(got, _numpy_sweeps(want, 10))

@@ -28,6 +28,9 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.models.convert, repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.mamba2_scan, repro_torch.kernels.rwkv6_wkv\n"
         "import repro_torch.models.mamba2, repro_torch.models.rwkv6\n"
+        "import repro_torch.analysis, repro_torch.analysis.__main__\n"
+        "import repro_torch.obs, repro_torch.serve, repro_torch.launch.serve\n"
+        "for name in repro_torch.__all__: getattr(repro_torch, name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"
@@ -92,9 +95,51 @@ def test_lm_entry_points_without_device_need_a_gpu():
 
 
 def test_unported_features_raise():
+    """What the port still lacks raises and names the ROADMAP: the MoE
+    block (grok-1's letter E) and the sharded collectives."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import init_params
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        repro_torch.runtime(device="cpu", verify="plan")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        repro_torch.runtime(device="cpu", trace="out.json")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        repro_torch.trace("out.json")
+        init_params(get_reduced("grok-1-314b"), device="cpu")
+    import repro_torch.comm
+
+    assert not hasattr(repro_torch.comm, "ring_all_gather")
+
+
+def test_exports_cover_the_reference():
+    """Every name the JAX package exports, the port exports too."""
+    pytest.importorskip("jax")
+    import repro
+
+    assert set(repro.__all__) <= set(repro_torch.__all__)
+    from repro import api as ref_api
+    from repro_torch import api
+
+    assert set(ref_api.__all__) <= set(api.__all__)
+
+
+def test_verify_and_trace_export_run(tmp_path, monkeypatch):
+    """verify="plan"|"full", REPRO_VERIFY, trace="path", REPRO_TRACE=path
+    and trace(path), which raised before the port had them."""
+    import numpy as np
+
+    for verify in ("plan", "full"):
+        with repro_torch.runtime(device="cpu", flush="async", verify=verify) as rt:
+            np.asarray(repro_torch.array(np.ones(8)) + 1.0)
+            assert rt.verify_stats.n_flushes_verified >= 1
+    monkeypatch.setenv("REPRO_VERIFY", "plan")
+    assert repro_torch.Runtime(nprocs=2, device="cpu").verify_mode == "plan"
+    monkeypatch.delenv("REPRO_VERIFY")
+    paths = [tmp_path / f"{k}.json" for k in range(3)]
+    with repro_torch.runtime(device="cpu", flush="async", trace=str(paths[0])):
+        np.asarray(repro_torch.array(np.ones(8)) + 1.0)
+    monkeypatch.setenv("REPRO_TRACE", str(paths[1]))
+    with repro_torch.runtime(device="cpu", flush="async"):
+        np.asarray(repro_torch.array(np.ones(8)) + 1.0)
+    monkeypatch.delenv("REPRO_TRACE")
+    with repro_torch.trace(str(paths[2])):
+        with repro_torch.runtime(device="cpu", flush="async"):
+            np.asarray(repro_torch.array(np.ones(8)) + 1.0)
+    for path in paths:
+        assert repro_torch.validate_trace(str(path))["n_events"] > 0

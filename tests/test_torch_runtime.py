@@ -183,11 +183,14 @@ def test_device_clock_accounts_gate_timeouts():
     clock._gate = Gate()
     limit = clock.GATE_TIMEOUT_S
     w0, w1, d1, d2 = WorkerStats(), WorkerStats(), WorkerStats(), WorkerStats()
+    # (start, end, epoch, (ops, fn s, held s), worker stats, shares, rank,
+    # trace collector): no collector, so nothing is emitted
     recs = [
-        (Event(0.0), Event(0.001), 1, (ops(Map(), 1), 1e-4, 2e-4), w0, [(d1, 1.0)]),
+        (Event(0.0), Event(0.001), 1, (ops(Map(), 1), 1e-4, 2e-4), w0, [(d1, 1.0)], 0, None),
         (Event(0.0), Event(0.004), 2, (ops(Map(), 2), 2 * limit, 2.1 * limit),
-         w0, [(d1, 0.5), (d2, 0.5)]),
-        (Event(0.0), Event(0.002), 3, (ops(Fill(), 1), 1e-4, 1.5 * limit), w1, [(d2, 1.0)]),
+         w0, [(d1, 0.5), (d2, 0.5)], 0, None),
+        (Event(0.0), Event(0.002), 3, (ops(Fill(), 1), 1e-4, 1.5 * limit), w1, [(d2, 1.0)],
+         1, None),
     ]
     with clock._lock:
         for rec in recs:
