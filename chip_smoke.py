@@ -96,7 +96,40 @@ V. verification and the trace: the paper-regime stencil (6 sweeps)
 14. the SSD scan (bf16: the tensor-core kernel, with ptxas's registers
     and spills) and wkv kernels' times at their paths' shapes beside
     their bounds and their plain versions' times, wkv on both routes
-    (bf16: the tensor-core kernel, f32: the FMA kernel).
+    (bf16: the tensor-core kernel, f32: the FMA kernel);
+15. deepseek-v2-lite-16b served the same way at full width and depth
+    (27 layers ``D`` + ``E`` x 26, d_model 2048, MLA with r 512 and
+    16 heads of 128 + 64 rotary, 64 experts top-6 of width 1408 and 2
+    shared, vocab 102400; 2 prompts x 2048 tokens): 0 flash launches
+    (MLA runs the torch route, as the JAX package does: its prefill the
+    absorbed latent form in f32); then the per-layer check with each
+    block's prefill route (a fresh decode state) against the block in
+    f32, the cache-free route as the twin, printing per ``E`` block the
+    (token, choice) pairs routed differently in bf16 and in f32;
+16. grok-1-314b at full width with its depth cut from 64 layers to 4
+    (d_model 6144, 48/8 heads of 128, 8 experts top-2 of width 32768,
+    vocab 131072 untied; 2 x 2048): exactly 4 flash launches, on wgmma
+    at d 128 and GQA 6:1; the per-layer check and the agreement of
+    phases 8-12 (the f32 yardstick upcast block by block, ``Upcast``);
+17. whisper-small at full size (12 encoder + 12 decoder layers, d_model
+    768, 12 heads of 64, 1500 frames a sequence, 2 x 448 decoder
+    tokens): exactly 36 flash launches, 12 non-causal in the encoder, 12
+    causal in the decoder, 12 non-causal cross-attentions of 448 queries
+    over 1500 keys; the per-layer check (encoder blocks first) and the
+    agreement;
+18. internvl2-2b at full size (24 layers, 16/8 heads of 128, a 256-
+    embedding image prefix before 2 x 2048 tokens): exactly 24 flash
+    launches; the per-layer check and the agreement;
+19. the bf16 flash kernel's time at the four new shapes (grok's,
+    internvl2's, whisper's encoder and cross-attention) beside its
+    bound, its plain version and SDPA, as phase 13.
+
+Phases 7-18 free each model before the next and print their peak
+device memory.  In an MoE model a near-tie between experts can route a
+token differently on two runs (bf16 against f32, or the kernels against
+the twins): the checks measure each route on the token rows routed as
+in the run it is held to, and count and print the rest (at most 1/4 of
+a block's rows in the per-layer check, 1/2 of the logits rows).
 
 Phase 2 also holds the SSD scan and wkv kernels to their plain versions
 (f32 and the paths' bf16/f32 mix; ragged lengths, initial states,
@@ -112,7 +145,9 @@ result, when no GPU is visible or the port is missing.
 """
 from __future__ import annotations
 
+import functools
 import json
+import operator
 import statistics
 import subprocess
 import sys
@@ -155,6 +190,38 @@ ZAMBA = ("zamba2-2.7b", dict(n_layers=54, layer_pattern="MMMMMH" * 9, d_model=25
 RWKV = ("rwkv6-3b", dict(n_layers=32, layer_pattern="R", d_model=2560,
                          rwkv_head_size=64, d_ff=8960, vocab_size=65536,
                          tie_embeddings=False))
+# the four families of phases 15-18, each at its published width: prompts
+# of FAMILY_PROMPT tokens (whisper: its published decoder context of 448,
+# beside 1500 encoder frames; internvl2: after a 256-embedding image
+# prefix), then LM_NEW greedy steps.  deepseek-v2-lite at full depth
+# (~31.4 GB in bf16); grok-1 cut from 64 layers to GROK_LAYERS (its full
+# depth needs ~628 GB in bf16; 4 layers and the untied embeddings take
+# ~42.6 GB); whisper-small and internvl2-2b at full depth
+FAMILY_PROMPT, WHISPER_PROMPT, GROK_LAYERS = 2048, 448, 4
+DEEPSEEK = ("deepseek-v2-lite-16b", dict(
+    n_layers=27, layer_pattern="D" + "E" * 26, d_model=2048, n_heads=16, attn_impl="mla",
+    kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+    d_ff=10944, n_experts=64, top_k=6, n_shared_experts=2, moe_d_ff=1408,
+    vocab_size=102400))
+GROK = ("grok-1-314b", dict(n_layers=GROK_LAYERS, layer_pattern="E", d_model=6144,
+                            n_heads=48, n_kv_heads=8, hd=128, n_experts=8, top_k=2,
+                            moe_d_ff=32768, vocab_size=131072, tie_embeddings=False))
+WHISPER = ("whisper-small", dict(n_layers=12, n_enc_layers=12, enc_dec=True, d_model=768,
+                                 n_heads=12, n_kv_heads=12, hd=64, enc_seq=1500, d_ff=3072,
+                                 act="gelu", vocab_size=51865, tie_embeddings=True))
+INTERNVL = ("internvl2-2b", dict(n_layers=24, d_model=2048, n_heads=16, n_kv_heads=8,
+                                 hd=128, n_img_tokens=256, d_ff=8192, vocab_size=92553,
+                                 tie_embeddings=True))
+# an MoE model's checks leave out the rows whose kept experts differ
+# between the runs compared (near-ties flipped by rounding), count them
+# and print them.  The per-layer check (4096 token rows a block) leaves
+# out at most MOE_FLIP_SHARE of a block's rows: about 4x the largest
+# share seen on the H100 (deepseek-v2-lite 87 of 4096 rows, 2.1%;
+# grok-1 28, 0.7%; PERF.md).  The logits comparison (2 rows a step, 17
+# steps) keeps at least one row of every step and leaves out at most
+# MOE_LOGIT_FLIP_SHARE of all rows: about 4x what grok-1's per-layer
+# share predicts for a row through its 4 layers (~2.7%; none seen).
+MOE_FLIP_SHARE, MOE_LOGIT_FLIP_SHARE = 0.08, 0.125
 # the recurrent kernels at their paths' shapes: x [b, s, h, p] with state
 # n, and r/k/v/w [B, T, H, N]
 SSD_PATH = (LM_BATCH, LM_PROMPT, 80, 64, 64)
@@ -186,9 +253,16 @@ WKV_CASES = [
 # fa.bf16_rel_err against the plain version in f32 on the same bf16 values
 FLASH_TOL = {"float32": 5e-4, "bfloat16": 5e-2}
 FLASH_ROUTE = {"float32": "flash_attention_simt", "bfloat16": "flash_attention_wgmma"}
-# the flash kernel's two path shapes: (B, S, H, KV, d, window)
-FLASH_PATHS = {"danube": (LM_BATCH, LM_PROMPT, 32, 8, 120, 4096),
-               "zamba2": (LM_BATCH, LM_PROMPT, 32, 32, 80, None)}
+# the flash kernel's path shapes: (B, Sq, Sk, H, KV, d, causal, window);
+# the first two time in phase 13, the rest in phase 19
+FLASH_PATHS = {
+    "danube": (LM_BATCH, LM_PROMPT, LM_PROMPT, 32, 8, 120, True, 4096),
+    "zamba2": (LM_BATCH, LM_PROMPT, LM_PROMPT, 32, 32, 80, True, None),
+    "grok": (LM_BATCH, FAMILY_PROMPT, FAMILY_PROMPT, 48, 8, 128, True, None),
+    "internvl2": (LM_BATCH, 256 + FAMILY_PROMPT, 256 + FAMILY_PROMPT, 16, 8, 128, True, None),
+    "whisper_enc": (LM_BATCH, 1500, 1500, 12, 12, 64, False, None),
+    "whisper_cross": (LM_BATCH, WHISPER_PROMPT, 1500, 12, 12, 64, False, None),
+}
 # kernels vs torch twins through the whole model: bf16 at full depth,
 # max |logit difference| over the max |logit|; f32 at a few layers, absolute.
 # A model with random weights may amplify bf16 rounding past 5e-2 over
@@ -461,12 +535,12 @@ def phase_flash_vs_plain(fa, torch, gen) -> dict:
             err["bf16_rel"] = max(err["bf16_rel"], rel)
     # the LM paths' shapes: h2o-danube's in f32 (the tight check: the FMA
     # kernel accumulates in f32) and in bf16 (the path's own dtype, on the
-    # wgmma kernel), zamba2's in bf16
-    for name, key, path in (("float32", "path_f32", "danube"), ("bfloat16", "danube", "danube"),
-                            ("bfloat16", "zamba2", "zamba2")):
-        B, S, H, KV, d, W = FLASH_PATHS[path]
-        q, k, v = flash_inputs(torch, gen, B, S, S, H, KV, d, getattr(torch, name))
-        err[key], err[f"{key}_rel"] = run(name, q, k, v, causal=True, window=W)
+    # wgmma kernel), the others in bf16
+    for name, key, path in (("float32", "path_f32", "danube"),
+                            *(("bfloat16", path, path) for path in FLASH_PATHS)):
+        B, Sq, Sk, H, KV, d, causal, W = FLASH_PATHS[path]
+        q, k, v = flash_inputs(torch, gen, B, Sq, Sk, H, KV, d, getattr(torch, name))
+        err[key], err[f"{key}_rel"] = run(name, q, k, v, causal=causal, window=W)
         del q, k, v
         torch.cuda.empty_cache()
     log(f"[2] flash_attention == plain version on the card ({len(FLASH_CASES)} "
@@ -475,12 +549,13 @@ def phase_flash_vs_plain(fa, torch, gen) -> dict:
         f"{FLASH_TOL['bfloat16']} and bf16_rel_err <= {fa.BF16_REL_TOL} against the "
         f"plain version in f32 on the wgmma kernel; and the LM paths' shapes: "
         f"h2o-danube [{LM_BATCH}, {LM_PROMPT}, 32, 120] / 8 KV heads, window 4096, "
-        f"in f32 and bf16, zamba2 [{LM_BATCH}, {LM_PROMPT}, 32, 80] causal MHA in "
-        f"bf16); max |err| f32 {err['float32']:.3g}, bf16 {err['bfloat16']:.3g}, "
-        f"danube f32 {err['path_f32']:.3g}, danube bf16 {err['danube']:.3g}, "
-        f"zamba2 bf16 {err['zamba2']:.3g}; bf16_rel_err cases {err['bf16_rel']:.4g}, "
-        f"danube {err['danube_rel']:.4g}, zamba2 {err['zamba2_rel']:.4g} "
-        f"(tol {fa.BF16_REL_TOL})")
+        f"in f32 and bf16, the others in bf16: {FLASH_PATHS}); max |err| f32 "
+        f"{err['float32']:.3g}, bf16 {err['bfloat16']:.3g}, danube f32 "
+        f"{err['path_f32']:.3g}, "
+        + ", ".join(f"{path} bf16 {err[path]:.3g}" for path in FLASH_PATHS)
+        + f"; bf16_rel_err cases {err['bf16_rel']:.4g}, "
+        + ", ".join(f"{path} {err[path + '_rel']:.4g}" for path in FLASH_PATHS)
+        + f" (tol {fa.BF16_REL_TOL})")
     return err
 
 
@@ -1290,24 +1365,59 @@ def rel_err(a, b) -> float:
     return max_abs_err(a, b) / float(b.double().abs().max())
 
 
+# torch.profiler's clock check: a spin kernel before and one after the
+# profiled call, each also timed by CUDA events (~5 ms at the H100's
+# clock; a shorter spin ahead keeps the stream busy past the first
+# event); the profiler's readings of both must be within
+# PROFILER_CLOCK_TOL of the events'.  Once more than one of the port's
+# kernel libraries is loaded, the profiler loses kernel records and
+# misreads durations on the chip machine (PERF.md), which this catches.
+SPIN_CYCLES, PROFILER_CLOCK_TOL = 10_000_000, 0.03
+
+
 def profile_device(torch, what: str, fn) -> float:
     """Device time by kernel over one call of ``fn``, from torch.profiler;
-    returns the total in ms (0.0 when the profiler records none)."""
+    returns the total in ms, or 0.0 (not measured) when the profiler
+    records none or fails its clock check (``SPIN_CYCLES``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda._sleep(1)  # loads the spin kernel's module outside the session
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SPIN_CYCLES // 4)
+        ev[0].record()
+        torch.cuda._sleep(SPIN_CYCLES)
+        ev[1].record()
         fn()
+        ev[2].record()
+        torch.cuda._sleep(SPIN_CYCLES)
+        ev[3].record()
         torch.cuda.synchronize()
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(
             e, "self_cuda_time_total", 0.0)
 
+    spins = sorted((e for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and "spin_kernel" in e.name),
+                   key=lambda e: e.time_range.start)
+    by_prof = [e.time_range.elapsed_us() / 1e3 for e in spins[1:]]
+    by_events = [ev[0].elapsed_time(ev[1]), ev[2].elapsed_time(ev[3])]
     # kernel rows only: an aten op's row repeats its kernels' device time
     rows = sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
+                   if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key),
+                  reverse=True)
     total = sum(r[0] for r in rows)
+    log(f"    profiler clock check over {what}: spin kernels "
+        f"{[round(t, 4) for t in by_prof]} ms by the profiler (of {len(spins)} found, 3 "
+        f"launched), {[round(t, 4) for t in by_events]} ms by CUDA events")
+    if len(spins) != 3 or any(abs(p / e - 1) > PROFILER_CLOCK_TOL
+                              for p, e in zip(by_prof, by_events)):
+        log(f"    profiler: lost spin kernels or a clock off CUDA events by more than "
+            f"{PROFILER_CLOCK_TOL:.0%}; device time over {what} not measured")
+        return 0.0
     if total <= 0:
         log(f"    profiler: no device time recorded over {what} (not measured)")
         return 0.0
@@ -1317,45 +1427,166 @@ def profile_device(torch, what: str, fn) -> float:
     return total / 1e3
 
 
-def phase_lm(torch, tag: str, arch: str, expect: dict, kernels: dict) -> dict:
-    """One LM main path: prefill then greedy decode at full width and
-    depth, every kernel's launches counted.  ``kernels`` maps a kernel's
-    name to (its ops module, its launches per prefill)."""
+class FlashShapes:
+    """While active, tallies the flash wrapper's calls from the models by
+    shape, ``(Sq, Sk, H, KV, d, causal)`` -> calls.  It wraps the name
+    that ``models.model`` and ``models.attention`` call; the launches
+    themselves are counted by the wrapper alone."""
+
+    def __enter__(self):
+        import collections
+
+        from repro_torch.models import attention, model
+
+        self.calls = collections.Counter()
+        self._real = real = model.flash_attention
+
+        def spy(q, k, v, **kw):
+            self.calls[(q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
+                        kw.get("causal", True))] += 1
+            return real(q, k, v, **kw)
+
+        model.flash_attention = attention.flash_attention = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention, model
+
+        model.flash_attention = attention.flash_attention = self._real
+
+
+class RouteLog:
+    """While active, records the routing of every MoE block call: its
+    kept experts per token, ``[T, K]`` sorted, -1 for a dropped choice
+    (``moe_routes`` on the block's input, beside the block's own call)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import model, moe
+
+        self._real = real = model.moe_apply
+
+        def spy(cfg, p, x, **kw):
+            idx, keep = moe.moe_routes(cfg, p, x, **kw)
+            self.calls.append(torch.where(keep, idx, -1).sort(dim=-1).values)
+            return real(cfg, p, x, **kw)
+
+        model.moe_apply = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import model
+
+        model.moe_apply = self._real
+
+
+def route_diff(a, b):
+    """Two routings of the same tokens (``RouteLog`` rows): the tokens
+    whose kept experts differ [T] and the (token, choice) pairs routed
+    differently."""
+    a_in_b = ((a[:, :, None] == b[:, None, :]).any(-1) & (a >= 0)).sum(-1)
+    b_in_a = ((b[:, :, None] == a[:, None, :]).any(-1) & (b >= 0)).sum(-1)
+    pairs = ((a >= 0).sum(-1) - a_in_b).maximum((b >= 0).sum(-1) - b_in_a)
+    return pairs > 0, int(pairs.sum())
+
+
+def upcast_block(torch, p, cfg32, letter: str):
+    """An f32 copy of block ``p`` (built in f32, then filled: no second
+    bf16 copy on the way)."""
+    from repro_torch.models.model import _block
+
+    p32 = _block(cfg32, letter, next(p.parameters()).device)
+    with torch.no_grad():
+        for (n32, a), (n, b) in zip(p32.named_parameters(), p.named_parameters(),
+                                    strict=True):
+            assert n32 == n, (n32, n)
+            a.copy_(b)
+    return p32
+
+
+class _UpcastRep:
+    def __init__(self, torch, rep, cfg32):
+        self.torch, self.rep, self.cfg32 = torch, rep, cfg32
+
+    def __getitem__(self, key):
+        return upcast_block(self.torch, self.rep[key], self.cfg32, key[-1])
+
+
+class Upcast:
+    """A model read in f32 by ``prefill`` and ``decode_step`` without an
+    f32 copy of all of it (grok-1's four layers would take 85 GB): the
+    embeddings, norms, encoder and shared block are upcast once, each
+    trunk block when the trunk reaches it, and freed after."""
+
+    def __init__(self, torch, params, cfg32):
+        import copy
+
+        for name in ("embed", "final_norm", "unembed", "img_norm"):
+            if hasattr(params, name):
+                setattr(self, name, getattr(params, name).float())
+        for name in ("encoder", "shared_attn"):
+            if hasattr(params, name):
+                setattr(self, name, copy.deepcopy(getattr(params, name)).float())
+        self.segs = [[_UpcastRep(torch, rep, cfg32) for rep in seg] for seg in params.segs]
+
+
+def phase_lm(torch, tag: str, arch: str, expect: dict, kernels: dict,
+             prompt: int = LM_PROMPT, overrides=None) -> dict:
+    """One LM main path: prefill then greedy decode at full width (and
+    depth unless ``overrides`` cut it), every kernel's launches counted.
+    ``kernels`` maps a kernel's name to (its ops module, its launches
+    per prefill).  The prompts are ``prompt`` seeded tokens a sequence,
+    with seeded frames for an encoder-decoder and a seeded image prefix
+    for a VLM."""
     from repro_torch.configs import SHAPES, ShapeSpec
     from repro_torch.launch.steps import cell_config, make_prefill_step, make_serve_step
     from repro_torch.models import init_params
 
-    cfg = cell_config(arch, "prefill_32k")
+    cfg = cell_config(arch, "prefill_32k", **(overrides or {}))
     got = {k: getattr(cfg, k) for k in expect}
     assert got == expect and cfg.dtype == "bfloat16" and cfg.use_flash, (arch, got)
     full = SHAPES["prefill_32k"]
-    shape = ShapeSpec(f"{full.name} cut to {LM_BATCH}x{LM_PROMPT}",
-                      LM_PROMPT + LM_NEW, LM_BATCH, "prefill")
+    n_img = cfg.n_img_tokens
+    shape = ShapeSpec(f"{full.name} cut to {LM_BATCH}x{prompt}",
+                      n_img + prompt + LM_NEW, LM_BATCH, "prefill")
     t0 = time.perf_counter()
-    params = init_params(cfg, seed=0)
+    params = init_params(cfg, seed=0, device=DEVICE)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.parameters())
-    if set(cfg.pattern) <= {"A", "D"}:
+    if set(cfg.pattern) <= {"A", "D"} and not cfg.enc_dec:
         # param_count() is exact for attention blocks (the M/R counts are
-        # its own approximations) and leaves out the final norm
-        assert n_params == cfg.param_count() + cfg.d_model, (n_params, cfg.param_count())
+        # its own approximations) and leaves out the final norm and a
+        # VLM's image norm
+        assert n_params == cfg.param_count() + cfg.d_model * (1 + bool(n_img)), (
+            n_params, cfg.param_count())
     gen = torch.Generator(device=DEVICE).manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), device=DEVICE,
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, prompt), device=DEVICE,
                            generator=gen, dtype=torch.int32)
     batch = {"tokens": tokens}
+    if cfg.enc_dec:
+        batch["enc_frames"] = torch.randn(LM_BATCH, cfg.enc_seq, cfg.d_model, device=DEVICE,
+                                          generator=gen).to(cfg.tdtype)
+    if n_img:
+        batch["img_emb"] = torch.randn(LM_BATCH, n_img, cfg.d_model, device=DEVICE,
+                                       generator=gen).to(cfg.tdtype)
     prefill_step = make_prefill_step(cfg, shape)
     serve_step = make_serve_step(cfg)
-    prefill_step(params, {"tokens": tokens[:, :512]})  # warm-up: cuBLAS set-up
+    prefill_step(params, dict(batch, tokens=tokens[:, :512]))  # warm-up: cuBLAS set-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     for mod, _ in kernels.values():
         mod.reset_launches()
-    t0 = time.perf_counter()
-    last, state = prefill_step(params, batch)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
+    with FlashShapes() as shapes:
+        t0 = time.perf_counter()
+        last, state = prefill_step(params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
     n_prefill = {name: mod.launches[name] for name, (mod, _) in kernels.items()}
     toks = [last.argmax(-1).to(torch.int32)]
     step_s = []
@@ -1372,22 +1603,29 @@ def phase_lm(torch, tag: str, arch: str, expect: dict, kernels: dict) -> dict:
     for name, (_, per_prefill) in kernels.items():
         assert n_prefill[name] == per_prefill, f"prefill launched {name} {n_prefill[name]} times"
         assert n_decode[name] == 0, f"decode launched {name} {n_decode[name]} times"
+    if "flash_attention" in kernels:
+        assert sum(shapes.calls.values()) == n_prefill["flash_attention"], shapes.calls
     assert last.shape == (LM_BATCH, cfg.vocab_size) and torch.isfinite(last).all()
-    assert state.pos.tolist() == [LM_PROMPT + LM_NEW] * LM_BATCH
+    assert state.pos.tolist() == [n_img + prompt + LM_NEW] * LM_BATCH
     # the device memory the decode state holds: its tensors' storages, so
     # that a view into a larger activation counts the whole activation
-    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
-                for rep in state.segs for blocks in rep for blk in blocks.values()
-                for v in blk.values()
-                for t in (v.values() if isinstance(v, dict) else (v,))}
+    held = [t for rep in state.segs for blocks in rep for blk in blocks.values()
+            for v in blk.values() for t in (v.values() if isinstance(v, dict) else (v,))]
+    if state.enc_out is not None:
+        held.append(state.enc_out)
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes() for t in held}
     state_bytes = sum(storages.values())
     step_ms = statistics.median(step_s) * 1e3
-    log(f"[{tag}] LM main path: {arch} full width and depth ({cfg.n_layers} layers "
-        f"{cfg.pattern[:6]}..., {n_params / 1e9:.3f} B params, bf16, seed 0; init "
-        f"{init_s:.2f} s), {LM_BATCH} prompts x {LM_PROMPT} tokens, max_len "
+    n_tok = LM_BATCH * (n_img + prompt)
+    log(f"[{tag}] LM main path: {arch} full width, {cfg.n_layers} layers "
+        f"{cfg.pattern[:6]}...{' + ' + str(cfg.n_enc_layers) + ' encoder layers' if cfg.enc_dec else ''} "
+        f"({n_params / 1e9:.3f} B params, bf16, seed 0; init {init_s:.2f} s), {LM_BATCH} "
+        f"prompts x {prompt} tokens{f' after {n_img} image embeddings' if n_img else ''}"
+        f"{f' beside {cfg.enc_seq} encoder frames' if cfg.enc_dec else ''}, max_len "
         f"{shape.seq_len}, then {LM_NEW} greedy steps")
-    log(f"    prefill {prefill_s:.3f} s ({LM_BATCH * LM_PROMPT / prefill_s:.0f} "
-        f"tokens/s); launches in prefill {n_prefill}, in decode {n_decode}")
+    log(f"    prefill {prefill_s:.3f} s ({n_tok / prefill_s:.0f} tokens/s); launches in "
+        f"prefill {n_prefill}, in decode {n_decode}; flash calls by (Sq, Sk, H, KV, d, "
+        f"causal): {dict(shapes.calls)}")
     log(f"    decode median {step_ms:.2f} ms/step (min {min(step_s) * 1e3:.2f}, max "
         f"{max(step_s) * 1e3:.2f}), {LM_BATCH / (step_ms / 1e3):.1f} tokens/s at "
         f"batch {LM_BATCH}; decode state (caches, recurrent states) "
@@ -1400,49 +1638,123 @@ def phase_lm(torch, tag: str, arch: str, expect: dict, kernels: dict) -> dict:
     if dev_ms:
         log(f"    decode: device busy {dev_ms:.2f} ms of a {step_ms:.2f} ms median "
             f"step, idle share {1 - dev_ms / step_ms:.3f}")
+    if "E" in cfg.pattern:
+        # at decode's batch every expert runs over a capacity of 1, so a
+        # block reads all its experts' weights: one block by CUDA events
+        from repro_torch.models.moe import MoE, moe_apply
+
+        moe = next(m for m in params.modules() if isinstance(m, MoE))
+        experts = sum(t.numel() * t.element_size() for t in (moe.w_gate, moe.w_in, moe.w_out))
+        x1 = torch.randn(LM_BATCH, 1, cfg.d_model, device=DEVICE, generator=gen).to(cfg.tdtype)
+        moe_ms = cuda_ms(lambda: moe_apply(cfg, moe, x1), reps=10)
+        floor_ms = experts / HBM_BYTES_PER_S * 1e3
+        n_moe = cfg.pattern.count("E")
+        log(f"    decode: one E block's moe_apply at batch {LM_BATCH} by CUDA events "
+            f"{moe_ms:.3f} ms for its experts' {experts / 1e9:.2f} GB ({experts / moe_ms / 1e9:.2f} "
+            f"TB/s; at least {floor_ms:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); x "
+            f"{n_moe} blocks = {moe_ms * n_moe:.2f} ms of a {step_ms:.2f} ms step")
+        assert moe_ms >= floor_ms, (moe_ms, floor_ms)
+    if cfg.attn_impl == "mla":
+        # MLA's prefill: the reference's absorbed f32 form into a fresh
+        # latent cache, no kernel; one block's call by CUDA events
+        from repro_torch.models.attention import MLA, mla_attention
+
+        mla = next(m for m in params.modules() if isinstance(m, MLA))
+        h = torch.randn(LM_BATCH, prompt, cfg.d_model, device=DEVICE, generator=gen).to(cfg.tdtype)
+        ckv = torch.zeros(LM_BATCH, shape.seq_len, cfg.kv_lora_rank + cfg.qk_rope_head_dim,
+                          dtype=cfg.tdtype, device=DEVICE)
+        at0 = torch.zeros(LM_BATCH, dtype=torch.int32, device=DEVICE)
+        pos = torch.arange(prompt, device=DEVICE).expand(LM_BATCH, prompt)
+        mla_ms = cuda_ms(lambda: mla_attention(cfg, mla, h, positions=pos, cache={"ckv": ckv},
+                                               cache_pos=at0), reps=5, warmup=1)
+        log(f"    prefill: one block's mla_attention (the torch route, absorbed f32) by CUDA "
+            f"events {mla_ms:.2f} ms; x {cfg.n_layers} blocks = {mla_ms * cfg.n_layers:.1f} ms "
+            f"of a {prefill_s * 1e3:.1f} ms prefill")
+        del h, ckv
     return dict(cfg=cfg, shape=shape, params=params, batch=batch, toks=toks,
-                launches=n_prefill, arch=arch)
+                launches=n_prefill, arch=arch, flash_shapes=dict(shapes.calls))
 
 
-def teacher_forced(torch, cfg, params, batch, toks, max_len) -> list:
+def teacher_forced(torch, cfg, params, batch, toks, max_len, routes=None) -> list:
     """Prefill's last logits, then the logits of a decode step fed each
-    token of ``toks`` but the last, as f32."""
+    token of ``toks`` but the last, as f32.  ``routes``, when given, gets
+    per logits row set the kept experts of those rows (``RouteLog``), one
+    [B, K] a MoE layer."""
     from repro_torch.models import decode_step, prefill
 
-    last, st = prefill(cfg, params, batch, max_len)
+    B = batch["tokens"].shape[0]
+    with RouteLog() as rl:
+        last, st = prefill(cfg, params, batch, max_len)
     outs = [last.float()]
+    if routes is not None:  # the last row of each sequence gives the logits
+        routes.append([c.reshape(B, -1, c.shape[-1])[:, -1] for c in rl.calls])
     for t in toks[:-1]:
-        lg, st = decode_step(cfg, params, t, st)
+        rl.calls.clear()
+        with rl:
+            lg, st = decode_step(cfg, params, t, st)
         assert torch.isfinite(lg).all()
         outs.append(lg.float())
+        if routes is not None:
+            routes.append(list(rl.calls))
     return outs
+
+
+def flipped_rows(ra, rb) -> list:
+    """Per logits row set of two ``teacher_forced`` runs: the rows [B]
+    whose kept experts differ in some MoE layer."""
+    return [functools.reduce(operator.or_, (route_diff(a, b)[0]
+                                            for a, b in zip(la, lb, strict=True)))
+            for la, lb in zip(ra, rb, strict=True)]
+
+
+def held_err(a, b, flip, rel: bool = True) -> float:
+    """max |a - b| over the rows that ``flip`` (None: no MoE) leaves,
+    over max |b| when ``rel``; fails when ``flip`` leaves no row."""
+    if flip is not None:
+        assert not bool(flip.all()), f"every row of a logits step flipped: {flip.tolist()}"
+        a, b = a[~flip], b[~flip]
+    e = max_abs_err(a, b)
+    return e / float(b.double().abs().max()) if rel else e
+
+
+def count_flips(flips) -> int:
+    return sum(int(f.sum()) for f in flips if f is not None)
+
+
+def assert_few_flips(flips, what: str) -> None:
+    rows = sum(f.numel() for f in flips if f is not None)
+    assert count_flips(flips) <= MOE_LOGIT_FLIP_SHARE * rows, (what, count_flips(flips), rows)
 
 
 def phase_lm_agreement(torch, tag: str, lm: dict, f32_kw: dict) -> None:
     """The kernel path (``use_flash=True``) against the torch twins
     (``use_flash=False``) on the same prompts, decode teacher-forced on the
-    greedy tokens: in bf16 at full depth, beside the twins in f32 on the
-    same weights (upcast) as the yardstick of the model's own bf16 noise;
-    then in f32 at full width with the layers ``f32_kw`` keeps."""
-    from repro_torch.models import Model, init_params
+    greedy tokens: in bf16 at the path's depth, beside the twins in f32 on
+    the same weights (each block upcast when reached, ``Upcast``) as the
+    yardstick of the model's own bf16 noise; then in f32 at full width
+    with the layers ``f32_kw`` keeps.  For an MoE model a logits row whose
+    own token routes to other experts in some layer on the two runs
+    compared (a near-tie flipped by rounding) is left out of that
+    comparison, counted, and printed."""
+    from repro_torch.models import init_params
 
     cfg, params, batch, toks = lm["cfg"], lm["params"], lm["batch"], lm["toks"]
     max_len = lm["shape"].seq_len
-    kern = teacher_forced(torch, cfg, params, batch, toks, max_len)
-    twin = teacher_forced(torch, cfg.replace(use_flash=False), params, batch, toks, max_len)
+    moe = "E" in cfg.pattern
+    torch.cuda.reset_peak_memory_stats()
+    rk, rt, rx = [], [], []
+    kern = teacher_forced(torch, cfg, params, batch, toks, max_len, rk)
+    twin = teacher_forced(torch, cfg.replace(use_flash=False), params, batch, toks, max_len, rt)
     cfg32 = cfg.replace(dtype="float32", param_dtype="float32", use_flash=False)
-    p32 = Model(cfg32, DEVICE)
-    with torch.no_grad():
-        for a, b in zip(p32.parameters(), params.parameters(), strict=True):
-            a.copy_(b)
+    exact = teacher_forced(torch, cfg32, Upcast(torch, params, cfg32), batch, toks, max_len, rx)
     del params, lm["params"]
     torch.cuda.empty_cache()
-    exact = teacher_forced(torch, cfg32, p32, batch, toks, max_len)
-    del p32
-    torch.cuda.empty_cache()
-    k_t = [rel_err(a, b) for a, b in zip(kern, twin)]
-    k_x = [rel_err(a, b) for a, b in zip(kern, exact)]
-    t_x = [rel_err(a, b) for a, b in zip(twin, exact)]
+    none = [None] * len(kern)
+    f_kt, f_kx, f_tx = ((flipped_rows(a, b) if moe else none)
+                        for a, b in ((rk, rt), (rk, rx), (rt, rx)))
+    k_t = [held_err(a, b, f) for a, b, f in zip(kern, twin, f_kt)]
+    k_x = [held_err(a, b, f) for a, b, f in zip(kern, exact, f_kx)]
+    t_x = [held_err(a, b, f) for a, b, f in zip(twin, exact, f_tx)]
     same = sum(bool((a.argmax(-1) == b.argmax(-1)).all()) for a, b in zip(kern, twin))
     # the danube tolerance, or half again the twins' own distance from f32
     # where the model amplifies bf16 rounding beyond it
@@ -1454,16 +1766,32 @@ def phase_lm_agreement(torch, tag: str, lm: dict, f32_kw: dict) -> None:
         f"{LM_NOISE_FACTOR} x the twins' distance from f32)); from the f32 twins: "
         f"kernels {max(k_x):.4f}, twins {max(t_x):.4f}; greedy tokens agree at "
         f"{same}/{len(kern)} positions; per step {[round(e, 4) for e in k_t]}")
+    if moe:
+        n_rows = len(kern) * LM_BATCH
+        log(f"    MoE routing flips (logits rows whose own token routes to other experts "
+            f"in some layer, left out of the comparison) of {n_rows} rows: kernels vs "
+            f"twins {count_flips(f_kt)}, kernels vs f32 {count_flips(f_kx)}, twins vs "
+            f"f32 {count_flips(f_tx)}")
+        for f, what in ((f_kt, "kernels vs twins"), (f_kx, "kernels vs f32"),
+                        (f_tx, "twins vs f32")):
+            assert_few_flips(f, what)
 
     cfg32 = cfg32.replace(use_flash=True, **f32_kw)
-    p32 = init_params(cfg32, seed=0)
-    kern = teacher_forced(torch, cfg32, p32, batch, toks[:5], max_len)
-    twin = teacher_forced(torch, cfg32.replace(use_flash=False), p32, batch, toks[:5], max_len)
-    errs = [max_abs_err(a, b) for a, b in zip(kern, twin)]
+    p32 = init_params(cfg32, seed=0, device=DEVICE)
+    rk, rt = [], []
+    kern = teacher_forced(torch, cfg32, p32, batch, toks[:5], max_len, rk)
+    twin = teacher_forced(torch, cfg32.replace(use_flash=False), p32, batch, toks[:5],
+                          max_len, rt)
+    f_kt = flipped_rows(rk, rt) if moe else [None] * len(kern)
+    errs = [held_err(a, b, f, rel=False) for a, b, f in zip(kern, twin, f_kt)]
     assert max(errs) <= LM_F32_ABS_TOL, errs
+    if moe:
+        assert_few_flips(f_kt, "f32 kernels vs twins")
     log(f"    f32, full width, {cfg32.n_layers} layers ({cfg32.pattern}): max |logit "
         f"diff| {max(errs):.3g} (tol {LM_F32_ABS_TOL}; max |logit| "
-        f"{float(twin[0].abs().max()):.3f}) over prefill + 4 teacher-forced steps")
+        f"{float(twin[0].abs().max()):.3f}) over prefill + 4 teacher-forced steps"
+        f"{f'; MoE flips {count_flips(f_kt)} of {len(kern) * LM_BATCH} rows' if moe else ''}"
+        f"; peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     del p32
     torch.cuda.empty_cache()
 
@@ -1474,41 +1802,99 @@ def phase_lm_agreement(torch, tag: str, lm: dict, f32_kw: dict) -> None:
 LAYER_FLOOR = 2.0 ** -6
 
 
-def layer_update_errors(torch, cfg, params, batch) -> list:
+def layer_update_errors(torch, cfg, params, batch, *, fresh_state: bool = False,
+                        routes=None) -> list:
     """Teacher-forced, per block: the bf16 twin's prefill (``use_flash``
-    False) runs through the trunk one block at a time, and each block's
-    input x_i goes to that block with the kernels (``use_flash`` True),
-    to the bf16 twin, and to the twin with the block's weights upcast to
-    f32 (one block at a time).  Compares the blocks' updates y - x_i, not
-    y, whose residual stream would hide a wrong kernel.  Returns
-    ``(index, letter, err(kernels, f32), err(twin, f32))`` per block, by
-    ``bf16_rel_err`` (row-normalised) over the whole [B, S, d_model]."""
+    False) runs through the trunk one block at a time (an encoder's
+    blocks first), and each block's input x_i goes to that block with
+    the kernels (``use_flash`` True; with ``fresh_state`` into a fresh
+    decode state, as prefill runs it: MLA's absorbed form), to the bf16
+    twin, and to the twin with the block's weights upcast to f32 (one
+    block at a time).  Compares the blocks' updates y - x_i, not y, whose
+    residual stream would hide a wrong kernel.  Returns ``(index,
+    letter, err(kernels, f32), err(twin, f32))`` per block, by
+    ``bf16_rel_err`` (row-normalised) over the whole [B, S, d_model]; of
+    an MoE block each route's over the token rows whose kept experts
+    agree with the f32 block's (the others, near-ties flipped by
+    rounding, are counted into ``routes`` when given, one dict a block)."""
     import copy
 
     from repro_torch.kernels.flash_attention import bf16_rel_err
-    from repro_torch.models.model import _apply_block, _embed_inputs, plan_segments
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.model import (
+        _apply_block,
+        _embed_inputs,
+        _enc_block,
+        _enc_input,
+        make_decode_state,
+        plan_segments,
+    )
 
     twin, kern = cfg.replace(use_flash=False), cfg.replace(use_flash=True)
     cfg32 = cfg.replace(dtype="float32", param_dtype="float32", use_flash=False)
     shared = getattr(params, "shared_attn", None)
     shared32 = None if shared is None else copy.deepcopy(shared).float()
     out = []
+
+    def record(letter, x, y_k, y_t, u32, held_k=None, held_t=None):
+        x32 = x.float()
+        d_k, d_t = y_k.float() - x32, y_t.float() - x32
+        e_k = (bf16_rel_err(d_k, u32) if held_k is None
+               else bf16_rel_err(d_k[held_k], u32[held_k]))
+        e_t = (bf16_rel_err(d_t, u32) if held_t is None
+               else bf16_rel_err(d_t[held_t], u32[held_t]))
+        out.append((len(out), letter, e_k, e_t))
+
     with torch.no_grad():
         x, pos = _embed_inputs(twin, params, batch)
+        enc_out = enc_out32 = None
+        if cfg.enc_dec:
+            h = _enc_input(twin, batch["enc_frames"])
+            enc32 = cfg32.replace(enc_dec=False)
+            for p in params.encoder.blocks:
+                y_t, y_k = _enc_block(twin, p, h), _enc_block(kern, p, h)
+                p32 = upcast_block(torch, p, enc32, "A")
+                record("enc", h, y_k, y_t, _enc_block(cfg32, p32, h.float()) - h.float())
+                del p32
+                h = y_t
+            enc_out = rmsnorm(h, params.encoder.norm)
+            enc_out32 = enc_out.float()
+        B = x.shape[0]
+        state = make_decode_state(kern, B, x.shape[1], device=x.device) if fresh_state else None
         kw = dict(pos=pos, st=None, cache_pos=None, fresh=False)
         for si, seg in enumerate(plan_segments(cfg)):
             for r in range(seg.reps):
                 for j, letter in enumerate(seg.body):
-                    p = params.segs[si][r][f"{j}{letter}"]
+                    key = f"{j}{letter}"
+                    p = params.segs[si][r][key]
+                    kw_k = kw if state is None else dict(
+                        pos=pos, st=state.segs[si][r][key], fresh=True,
+                        cache_pos=torch.zeros(B, dtype=torch.int32, device=x.device))
+                    with RouteLog() as rl_t:
+                        y_t = _apply_block(twin, letter, p, x, shared=shared,
+                                           enc_out=enc_out, **kw)[0]
+                    with RouteLog() as rl_k:
+                        y_k = _apply_block(kern, letter, p, x, shared=shared,
+                                           enc_out=enc_out, **kw_k)[0]
+                    p32 = upcast_block(torch, p, cfg32, letter)
                     x32 = x.float()
-                    y_t = _apply_block(twin, letter, p, x, shared=shared, **kw)[0]
-                    y_k = _apply_block(kern, letter, p, x, shared=shared, **kw)[0]
-                    p32 = copy.deepcopy(p).float()
-                    u32 = _apply_block(cfg32, letter, p32, x32, shared=shared32, **kw)[0] - x32
-                    del p32
-                    out.append((len(out), letter, bf16_rel_err(y_k.float() - x32, u32),
-                                bf16_rel_err(y_t.float() - x32, u32)))
-                    del y_k, u32, x32
+                    with RouteLog() as rl_x:
+                        u32 = _apply_block(cfg32, letter, p32, x32, shared=shared32,
+                                           enc_out=enc_out32, **kw)[0] - x32
+                    del p32, x32
+                    held_k = held_t = None
+                    if rl_x.calls:  # an MoE block: the rows routed as in f32 are held
+                        (a,), (b,), (c,) = rl_k.calls, rl_t.calls, rl_x.calls
+                        f_k, p_k = route_diff(a, c)
+                        f_t, p_t = route_diff(b, c)
+                        held_k, held_t = ~f_k.reshape(x.shape[:2]), ~f_t.reshape(x.shape[:2])
+                        if routes is not None:
+                            routes.append(dict(
+                                block=len(out), pairs=a.numel(), kern_f32=p_k, twin_f32=p_t,
+                                kern_twin=route_diff(a, b)[1], rows=f_k.numel(),
+                                held=(int(held_k.sum()), int(held_t.sum()))))
+                    record(letter, x, y_k, y_t, u32, held_k, held_t)
+                    del y_k, u32
                     x = y_t
     return out
 
@@ -1523,68 +1909,89 @@ def layers_within_bound(errs) -> bool:
     return all(e_k <= layer_bound(e_t) for _, _, e_k, e_t in errs)
 
 
-def phase_layer_check(torch, tag: str, lm: dict) -> None:
+def phase_layer_check(torch, tag: str, lm: dict, fresh_state: bool = False) -> None:
     """The per-layer check at full width and depth on the path's prompts
     (``layer_update_errors``), asserted on every block; prints the worst
-    block, by its margin to the bound."""
-    errs = layer_update_errors(torch, lm["cfg"], lm["params"], lm["batch"])
+    block, by its margin to the bound, and each MoE block's routing flips."""
+    torch.cuda.reset_peak_memory_stats()
+    routes = []
+    errs = layer_update_errors(torch, lm["cfg"], lm["params"], lm["batch"],
+                               fresh_state=fresh_state, routes=routes)
     i, letter, e_k, e_t = max(errs, key=lambda e: e[2] / layer_bound(e[3]))
+    kern = "prefill's route (fresh state)" if fresh_state else "kernels"
     log(f"[{tag}] {lm['arch']}: per-layer check, {len(errs)} blocks teacher-forced on the "
         f"bf16 twin's activations, update y - x against the block in f32, "
-        f"bf16_rel_err: worst block {i} ({letter}) kernels {e_k:.4g}, twin {e_t:.4g}, "
+        f"bf16_rel_err: worst block {i} ({letter}) {kern} {e_k:.4g}, twin {e_t:.4g}, "
         f"bound {layer_bound(e_t):.4g} = max({LAYER_FLOOR:.4g}, {LM_NOISE_FACTOR} x twin); "
-        f"largest kernels error {max(e[2] for e in errs):.4g}, twin "
+        f"largest {kern} error {max(e[2] for e in errs):.4g}, twin "
         f"{max(e[3] for e in errs):.4g}")
+    if routes:
+        log(f"    MoE routing flips per E block, (token, choice) pairs routed differently "
+            f"of {routes[0]['pairs']}: bf16 {kern} vs f32 "
+            f"{[r['kern_f32'] for r in routes]}; bf16 twin vs f32 "
+            f"{[r['twin_f32'] for r in routes]}; {kern} vs twin "
+            f"{[r['kern_twin'] for r in routes]}; token rows measured ({kern}, twin: "
+            f"kept experts as in f32) {[r['held'] for r in routes]} of {routes[0]['rows']}")
+        assert all(min(r["held"]) >= (1 - MOE_FLIP_SHARE) * r["rows"] for r in routes), routes
+    log(f"    peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     assert layers_within_bound(errs), [e for e in errs if e[2] > layer_bound(e[3])]
     torch.cuda.empty_cache()
 
 
-def valid_pairs(S: int, window: int, B: int, H: int) -> int:
-    """(query, key) pairs a causal, windowed prefill of S tokens keeps."""
-    per_head = sum(min(i + 1, window) for i in range(S))
+def valid_pairs(B: int, Sq: int, Sk: int, H: int, causal: bool, window) -> int:
+    """(query, key) pairs an attention keeps: key j for query i when
+    j <= i if causal and i - j < window if windowed."""
+    per_head = 0
+    for i in range(Sq):
+        hi = min(i + 1, Sk) if causal else Sk
+        lo = max(0, i - window + 1) if window is not None else 0
+        per_head += max(0, hi - lo)
     return per_head * B * H
 
 
-def phase_flash_times(fa, torch, gen, path: str, launches: int, err: dict) -> dict:
+def phase_flash_times(fa, torch, gen, tag: str, path: str, launches: int, err: dict) -> dict:
     """The bf16 (wgmma) flash kernel at one LM path's shape beside its
     bound, its plain version and one SDPA call: with a band mask and
     ``enable_gqa`` where the path has a window (h2o-danube), with
-    ``is_causal=True`` where it has none (zamba2), which lets PyTorch
-    take its flash backend."""
+    ``is_causal=True`` where it is causal without one, with no mask
+    where it is not causal (whisper's encoder and cross-attention);
+    ``enable_gqa`` where the heads are grouped."""
     import torch.nn.functional as F
 
-    B, S, H, KV, d, W = FLASH_PATHS[path]
-    q, k, v = flash_inputs(torch, gen, B, S, S, H, KV, d, torch.bfloat16)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True, window=W),
-                       reps=3, warmup=1)
+    B, Sq, Sk, H, KV, d, causal, W = FLASH_PATHS[path]
+    q, k, v = flash_inputs(torch, gen, B, Sq, Sk, H, KV, d, torch.bfloat16)
+    kw = dict(causal=causal, window=W)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), reps=3, warmup=1)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = dict(enable_gqa=True) if H != KV else {}
     if W is not None:
-        i = torch.arange(S, device=DEVICE)
-        band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < W)
-        lib_name = "band mask, enable_gqa"
-
-        def library():
-            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
-                                                  enable_gqa=True)
-    else:
-        assert H == KV
+        assert causal and Sq == Sk
+        i = torch.arange(Sq, device=DEVICE)
+        sdpa["attn_mask"] = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < W)
+        lib_name = "band mask"
+    elif causal:
+        assert Sq == Sk
+        sdpa["is_causal"] = True
         lib_name = "is_causal=True"
+    else:
+        lib_name = "no mask"
+    lib_name += ", enable_gqa" if H != KV else ""
 
-        def library():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
 
-    lib_err = max_abs_err(library().transpose(1, 2), fa.flash_attention(
-        q, k, v, causal=True, window=W))
+    lib_err = max_abs_err(library().transpose(1, 2), fa.flash_attention(q, k, v, **kw))
     # the kernel and the library call in alternating rounds
     ms, library_ms = cuda_ms_alternating(
-        [lambda: fa.flash_attention(q, k, v, causal=True, window=W), library], reps=10)
-    pairs = valid_pairs(S, W or S, B, H)
+        [lambda: fa.flash_attention(q, k, v, **kw), library], reps=10)
+    pairs = valid_pairs(B, Sq, Sk, H, causal, W)
     flops = 4 * d * pairs  # q.k and p.v: 2 d multiply-adds per kept pair
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())  # bf16 q, k, v, out
     bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3
-    log(f"[13] flash_attention [{B}, {S}, {H}, {d}] / {KV} KV heads, "
-        f"{'window ' + str(W) if W else 'causal, no window'}, bf16 (the {path} path's "
-        f"shape; {launches} launches over its prefill): kernel {ms:.3f} ms | bound "
+    what = (f"window {W}" if W else "causal, no window") if causal else "not causal"
+    log(f"[{tag}] flash_attention q [{B}, {Sq}, {H}, {d}], k/v [{B}, {Sk}, {KV}, {d}], "
+        f"{what}, bf16 (the {path} path's shape; {launches} launches over its prefill): "
+        f"kernel {ms:.3f} ms | bound "
         f"{bound_ms:.4f} ms ({pairs / 1e9:.3f} G kept pairs x {4 * d} flop at 989 "
         f"TFLOP/s; bytes {nbytes / 1e6:.1f} MB at 3.35 TB/s = "
         f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms) | plain {plain_ms:.3f} ms | "
@@ -1764,12 +2171,44 @@ def main() -> int:
         del lm
         torch.cuda.empty_cache()
     for path, arch in (("danube", DANUBE[0]), ("zamba2", ZAMBA[0])):
-        records.append(phase_flash_times(fa, torch, gen, path,
+        records.append(phase_flash_times(fa, torch, gen, "13", path,
                                          launches[arch]["flash_attention_wgmma"], flash_err))
         torch.cuda.empty_cache()
     records += phase_recurrent_times(ssd, wkv, torch, gen, {
         "ssd_scan_tc": launches[ZAMBA[0]]["ssd_scan_tc"],
         "wkv6_tc": launches[RWKV[0]]["wkv6_tc"]}, rec_err)
+    torch.cuda.empty_cache()
+    # the four families: flash launches a prefill, each on wgmma, by shape
+    # (Sq, Sk, H, KV, d, causal); deepseek's MLA and every MoE block run
+    # no kernel (the JAX package has none for them)
+    P, W, I = FAMILY_PROMPT, WHISPER_PROMPT, 256 + FAMILY_PROMPT
+    shapes = {}
+    for tags, (arch, expect), by_shape, run in (
+        (("15", "15b"), DEEPSEEK, {}, dict(fresh_state=True)),
+        (("16", "16b"), GROK, {(P, P, 48, 8, 128, True): GROK_LAYERS},
+         dict(overrides=dict(n_layers=GROK_LAYERS), f32_kw=dict(n_layers=1))),
+        (("17", "17b"), WHISPER, {(1500, 1500, 12, 12, 64, False): 12,
+                                  (W, W, 12, 12, 64, True): 12,
+                                  (W, 1500, 12, 12, 64, False): 12},
+         dict(prompt=WHISPER_PROMPT, f32_kw={})),
+        (("18", "18b"), INTERNVL, {(I, I, 16, 8, 128, True): 24}, dict(f32_kw=dict(n_layers=2))),
+    ):
+        n = sum(by_shape.values())
+        lm = phase_lm(torch, tags[0], arch, expect,
+                      {"flash_attention": (fa, n), "flash_attention_wgmma": (fa, n)},
+                      prompt=run.get("prompt", FAMILY_PROMPT), overrides=run.get("overrides"))
+        assert lm["flash_shapes"] == by_shape, (arch, lm["flash_shapes"])
+        shapes.update(lm["flash_shapes"])
+        phase_layer_check(torch, tags[1], lm, fresh_state=run.get("fresh_state", False))
+        if "f32_kw" in run:
+            phase_lm_agreement(torch, tags[1], lm, run["f32_kw"])
+        del lm
+        torch.cuda.empty_cache()
+    for path in ("grok", "internvl2", "whisper_enc", "whisper_cross"):
+        B, Sq, Sk, H, KV, d, causal, _ = FLASH_PATHS[path]
+        records.append(phase_flash_times(fa, torch, gen, "19", path,
+                                         shapes[(Sq, Sk, H, KV, d, causal)], flash_err))
+        torch.cuda.empty_cache()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": records}))
     log(card)

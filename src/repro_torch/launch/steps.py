@@ -50,6 +50,11 @@ def cell_config(arch_id: str, shape_name: str, **overrides) -> ModelConfig:
 
 
 def make_prefill_step(cfg, shape: ShapeSpec) -> Callable:
+    """``prefill_step(params, batch)``: the batch goes to ``prefill`` whole,
+    so whisper's ``enc_frames`` and internvl2's ``img_emb`` travel with
+    its ``tokens``; ``shape.seq_len`` is the cache capacity, an image
+    prefix included."""
+
     def prefill_step(params, batch):
         return prefill(cfg, params, batch, max_len=shape.seq_len)
 

@@ -9,7 +9,13 @@ that fit the flash kernel's contract to
 
 Caches are updated in place (the JAX code returns new arrays): a
 ``[B, L, KV, hd]`` cache is written where ``dynamic_update_slice``
-would write, and the same tensor is returned.  MLA is not ported yet.
+would write, and the same tensor is returned.  ``attention`` (the
+whisper encoder's self-attention and the decoders' cross-attention)
+sends its cache-free calls to the flash kernel too when the caller asks
+(``flash=True``: prefill under ``cfg.use_flash``); a head dim the
+kernel does not take raises there, as in ``model._gqa``.
+MLA (``mla_attention``) runs ``chunked_attention`` and its absorbed
+latent form, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -19,10 +25,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels.flash_attention import flash_attention
+
 from .layers import apply_rope, dense_init, linear, resolve_device
 
 __all__ = [
     "Attention",
+    "MLA",
     "attn_init",
     "attention",
     "chunked_attention",
@@ -173,6 +182,7 @@ def attention(
     kv_from: Optional[torch.Tensor] = None,  # cross-attention source [B, Se, D]
     cache: Optional[dict] = None,  # {"k","v"} [B, L_max, KV, hd], written in place
     cache_pos=None,  # [B] write offset for this step
+    flash: bool = False,  # cache-free calls on the flash kernel
 ):
     """Returns (out [B,S,D], cache or None)."""
     B, S, D = x.shape
@@ -198,6 +208,9 @@ def attention(
             causal=causal, window=window,
             q_offset=cache_pos, kv_len=cache_pos + S, chunk=cfg.attn_chunk,
         )
+    elif flash:
+        # queries from position 0 over all of k: the kernel's contract
+        out = flash_attention(q, k, v, causal=causal and kv_from is None, window=window)
     else:
         out = chunked_attention(
             q, k, v,
@@ -208,15 +221,99 @@ def attention(
 
 
 # ---------------------------------------------------------------------------
-# MLA (DeepSeek-V2 latent attention): not ported yet
+# MLA (DeepSeek-V2 latent attention)
 # ---------------------------------------------------------------------------
 
 
-def _mla_not_ported(*args, **kwargs):
-    raise NotImplementedError(
-        "MLA (DeepSeek latent attention, attn_impl='mla') is not ported to "
-        "repro_torch yet: see ROADMAP.md, queue 1"
-    )
+class MLA(nn.Module):
+    """MLA projections: ``wq`` [D, H·(dn+dr)], ``wdkv`` [D, r+dr] (the
+    latent c_kv and the shared rotary key), ``wuk`` [r, H·dn], ``wuv``
+    [r, H·dv] and ``wo`` [H·dv, D]."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        D, H, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+        dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+        kw = dict(dtype=cfg.tparam_dtype, device=device)
+        for name, shape in (("wq", (D, H * (dn + dr))), ("wdkv", (D, r + dr)),
+                            ("wuk", (r, H * dn)), ("wuv", (r, H * dv)),
+                            ("wo", (H * dv, D))):
+            setattr(self, name, nn.Parameter(torch.empty(shape, **kw),
+                                             requires_grad=False))
 
 
-mla_init = mla_attention = init_mla_cache = _mla_not_ported
+def mla_init(cfg, generator: torch.Generator, *, device=None) -> MLA:
+    """An MLA layer on ``device`` (``None``: the GPU) with fan-in
+    truncated-normal weights from ``generator``."""
+    p = MLA(cfg, device=resolve_device(device))
+    for w in p.parameters():
+        dense_init(w, generator)
+    return p
+
+
+def init_mla_cache(cfg, batch: int, max_len: int, n_layers: int, device=None):
+    """Zeroed latent caches ``{"ckv": [n_layers, B, L, r + dr]}``."""
+    r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    return {"ckv": torch.zeros((n_layers, batch, max_len, r + dr), dtype=cfg.tdtype,
+                               device=resolve_device(device))}
+
+
+def mla_attention(cfg, p: MLA, x, *, positions=None, cache=None, cache_pos=None):
+    """MLA forward.  Returns (out [B, S, D], ``{"ckv"}`` or None).
+
+    With no cache the latent is expanded to per-head K/V and attended by
+    ``chunked_attention``: q·k over dn + dr = 192 columns at deepseek's
+    widths, v 128 wide, scale (dn + dr)^-0.5.  The flash kernel takes
+    neither (d ≤ 128, k and v of one shape), and the JAX package runs
+    its jnp ``chunked_attention`` here too, with no Pallas kernel: this
+    is the reference's route, not a fallback.
+
+    With a cache (prefill into a decode state, and decode) the *absorbed*
+    form in f32, as the JAX package computes it: the queries are
+    projected into the latent space, so the cache stays ``r + dr`` wide
+    per token and is never expanded.  ``cache["ckv"]`` [B, L, r + dr] is
+    written in place at ``cache_pos``."""
+    B, S, D = x.shape
+    H = cfg.n_heads
+    r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                     cfg.v_head_dim)
+    if positions is None:
+        positions = torch.arange(S, device=x.device).expand(B, S)
+
+    q = linear(x, p.wq).reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    dkv = linear(x, p.wdkv)  # [B, S, r + dr]
+    ckv, k_rope = dkv[..., :r], dkv[..., r:]
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    scale = (dn + dr) ** -0.5
+
+    if cache is None:
+        k_nope = linear(ckv, p.wuk).reshape(B, S, H, dn)
+        vv = linear(ckv, p.wuv).reshape(B, S, H, dv)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)], dim=-1)
+        qc = torch.cat([q_nope, q_rope], dim=-1)
+        out = chunked_attention(qc, k, vv, causal=True, chunk=cfg.attn_chunk, scale=scale)
+        return linear(out.reshape(B, S, H * dv), p.wo), None
+
+    # --- absorbed form -------------------------------------------------------
+    buf = write_cache(cache["ckv"], torch.cat([ckv, k_rope], dim=-1), cache_pos)
+    cache_pos = torch.as_tensor(cache_pos, device=x.device).expand(B)
+    kv_len = cache_pos + S
+    L = buf.shape[1]
+    c_all, kr_all = buf[..., :r].float(), buf[..., r:].float()
+    # absorb W_uk into q:  q_lat[b,s,h,r] = q_nope · W_uk[·,h,·]
+    wuk = p.wuk.reshape(r, H, dn).float()
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope.float(), wuk)
+    s = (torch.einsum("bshr,blr->bhsl", q_lat, c_all)
+         + torch.einsum("bshd,bld->bhsl", q_rope.float(), kr_all)) * scale
+    k_pos = torch.arange(L, device=x.device)
+    q_pos = cache_pos[:, None] + torch.arange(S, device=x.device)
+    ok = (k_pos[None, None, :] < kv_len[:, None, None]) & (
+        q_pos[:, :, None] >= k_pos[None, None, :])
+    s = torch.where(ok[:, None], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhsl,blr->bshr", w, c_all)  # [B, S, H, r]
+    wuv = p.wuv.reshape(r, H, dv).float()
+    out = torch.einsum("bshr,rhd->bshd", o_lat, wuv).to(x.dtype)
+    return linear(out.reshape(B, S, H * dv), p.wo), {"ckv": buf}

@@ -5,9 +5,11 @@
 (``jax.tree.map(np.asarray, params)``), and returns the port's
 :class:`~repro_torch.models.model.Model` holding the same weights.  A
 segment whose reps the JAX package stacks along a leading axis is
-un-stacked into one module per rep; zamba2's ``shared_attn`` block and
-the Mamba2 and RWKV6 leaves (the f32 ones included) come over as they
-are.  Importing this module imports no JAX: it reads numpy arrays only.
+un-stacked into one module per rep, and so are the encoder's stacked
+blocks; zamba2's ``shared_attn`` block, the Mamba2 and RWKV6 leaves, the
+MoE leaves (the router in f32, the experts ``[E, D, F]``/``[E, F, D]``,
+the shared experts), MLA's, a decoder block's ``lnx``/``xattn``, the
+encoder's ``norm`` and a VLM's ``img_norm`` come over as they are.  Importing this module imports no JAX: it reads numpy arrays only.
 
 bf16 leaves arrive as numpy arrays of ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` refuses.  They cross as their bits: a ``uint16``
@@ -71,4 +73,12 @@ def params_from_jax(cfg, tree, device=None) -> Model:
     if hasattr(model, "shared_attn"):
         for name, param in model.shared_attn.named_parameters():
             put(param, walk(tree["shared_attn"], name), f"shared_attn.{name}")
+    if hasattr(model, "encoder"):
+        for i, block in enumerate(model.encoder.blocks):
+            for name, param in block.named_parameters():
+                leaf = np.asarray(walk(tree["encoder"]["blocks"], name))[i]
+                put(param, leaf, f"encoder.blocks.{name}[{i}]")
+        put(model.encoder.norm, tree["encoder"]["norm"], "encoder.norm")
+    if hasattr(model, "img_norm"):
+        put(model.img_norm, tree["img_norm"], "img_norm")
     return model

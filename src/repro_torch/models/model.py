@@ -1,5 +1,6 @@
-"""Model assembly: the attention (``A``/``D``), Mamba2 (``M``), zamba2
-hybrid (``H``) and RWKV6 (``R``) architectures.
+"""Model assembly: the attention (``A``/``D``), MoE (``E``), Mamba2
+(``M``), zamba2 hybrid (``H``) and RWKV6 (``R``) architectures, MLA
+attention, the encoder-decoder (whisper) and the VLM image prefix.
 
 The port of ``repro.models.model``.  Parameters live in an ``nn.Module``
 tree under the JAX package's key names: a :class:`Model` holds ``embed``
@@ -7,12 +8,16 @@ tree under the JAX package's key names: a :class:`Model` holds ``embed``
 are tied), ``shared_attn`` (zamba2's one attention + MLP :class:`Block`,
 present when the pattern has an ``H``) and ``segs[i][r]["{j}{letter}"]``,
 the block at body position j of rep r of segment i (``plan_segments``):
-a :class:`Block` for ``A``/``D``, a :class:`MambaBlock` (``ln``,
-``mamba``) for ``M``/``H``, an :class:`~repro_torch.models.rwkv6.RWKV6`
-for ``R``.  The JAX package stacks a segment's reps along a leading axis
-for ``lax.scan``; the port keeps one module per rep and loops.  An ``H``
-layer runs ``shared_attn`` (with its own KV cache) and then its own
-Mamba2 mixer.
+a :class:`Block` for ``A``/``D``/``E`` (``E`` holds ``moe`` where the
+others hold ``mlp``; its ``attn`` is an :class:`~.attention.MLA` under
+``attn_impl="mla"``; a decoder block of an encoder-decoder adds ``lnx``
+and ``xattn``), a :class:`MambaBlock` (``ln``, ``mamba``) for ``M``/``H``,
+an :class:`~repro_torch.models.rwkv6.RWKV6` for ``R``.  An encoder-
+decoder's ``encoder`` holds ``blocks`` (one ``A`` block a layer) and
+``norm``; a VLM's ``img_norm`` normalises the image prefix.  The JAX
+package stacks a segment's reps along a leading axis for ``lax.scan``;
+the port keeps one module per rep and loops.  An ``H`` layer runs
+``shared_attn`` (with its own KV cache) and then its own Mamba2 mixer.
 
 ``prefill`` and ``decode_step`` are plain functions on an explicit
 :class:`DecodeState`.  Both update it in place and return it.
@@ -21,29 +26,29 @@ Mamba2 mixer.
 CUDA kernels: attention to the flash kernel wherever the call fits its
 contract — queries from position 0, keys masked past a static
 ``sk_valid``: the cache-free forward, and a prefill into a fresh decode
-state (ring or not) — the Mamba2 sequence scan to the SSD kernel and the
+state (ring or not); whisper's encoder and the cross-attention to it,
+both non-causal — the Mamba2 sequence scan to the SSD kernel and the
 RWKV6 recurrence to the wkv kernel.  ``use_flash=False`` runs the torch
 twins of the JAX package's jnp code instead (``chunked_attention``,
 ``ssd_chunked``, ``wkv_chunked``).  Decode steps run the torch code
 (``chunked_attention``, ``ssd_step``, ``wkv_step``), as the JAX package
-runs them.
-
-Not ported yet (see ROADMAP.md): the letter ``E`` (MoE), MLA, the
-encoder-decoder (whisper) and the VLM image prefix; a config that needs
-one raises ``NotImplementedError``.
+runs them.  MLA and the MoE block have no kernel on either route (the
+JAX package has none for them): MLA runs ``chunked_attention`` and its
+absorbed latent form, the MoE block batched matmuls.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.kernels.flash_attention import flash_attention
 
 from . import mamba2, rwkv6
-from .attention import Attention, chunked_attention, mla_init, write_cache
+from .attention import MLA, Attention, attention, chunked_attention, mla_attention, write_cache
 from .hints import shard_hint
 from .layers import (
     MLP,
@@ -55,11 +60,13 @@ from .layers import (
     rmsnorm,
 )
 from .mamba2 import Mamba2, init_mamba2_state, mamba2_apply, mamba2_step
+from .moe import MoE, moe_apply
 from .rwkv6 import RWKV6, init_rwkv6_state, rwkv6_apply, rwkv6_step
 
 __all__ = [
     "Block",
     "MambaBlock",
+    "Encoder",
     "Model",
     "DecodeState",
     "Segment",
@@ -71,12 +78,12 @@ __all__ = [
     "make_decode_state",
 ]
 
-_PORTED_LETTERS = ("A", "D", "M", "H", "R")
+_LETTERS = ("A", "D", "E", "M", "H", "R")
 _MAMBA_STATE_KEYS = ("conv_x", "conv_B", "conv_C", "ssm")
 # init_params: the leaves the JAX package fills with a constant, and the
 # scale of those drawn at another scale than 1/sqrt(fan_in)
-_CONST_INIT = {"ln1": 1.0, "ln2": 1.0, "ln": 1.0, "final_norm": 1.0,
-               **mamba2.CONST_INIT, **rwkv6.CONST_INIT}
+_CONST_INIT = {"ln1": 1.0, "ln2": 1.0, "lnx": 1.0, "ln": 1.0, "final_norm": 1.0,
+               "norm": 1.0, "img_norm": 1.0, **mamba2.CONST_INIT, **rwkv6.CONST_INIT}
 _SCALED_INIT = {"embed": 0.02, **rwkv6.SCALED_INIT}
 
 
@@ -118,36 +125,36 @@ def plan_segments(cfg) -> tuple[Segment, ...]:
 # ---------------------------------------------------------------------------
 
 
-def _check_ported(cfg) -> None:
-    unknown = sorted(set(cfg.pattern) - set(_PORTED_LETTERS) - {"E"})
+def _check_letters(cfg) -> None:
+    unknown = sorted(set(cfg.pattern) - set(_LETTERS))
     if unknown:
         raise ValueError(f"{cfg.arch_id}: unknown block letters {unknown}")
-    missing = [what for what, needed in (
-        ("the MoE block (letter E)", "E" in cfg.pattern),
-        ("MLA attention", cfg.attn_impl == "mla"),
-        ("the encoder-decoder stack", cfg.enc_dec),
-        ("the VLM image prefix", bool(cfg.n_img_tokens)),
-    ) if needed]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: {', '.join(missing)} not ported to repro_torch "
-            f"yet: see ROADMAP.md, queue 1"
-        )
 
 
 class Block(nn.Module):
-    """Pre-norm attention + MLP block (letters ``A`` and ``D``): ``ln1``,
-    ``attn``, ``ln2``, ``mlp``."""
+    """Pre-norm attention + FFN block (letters ``A``, ``D`` and ``E``):
+    ``ln1``, ``attn`` (:class:`Attention`, or :class:`MLA` under
+    ``attn_impl="mla"``), ``ln2`` and ``mlp`` (``moe``, a :class:`MoE`,
+    for ``E``); a decoder block of an encoder-decoder adds ``lnx`` and
+    ``xattn`` (the cross-attention, an :class:`Attention`)."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, letter: str = "A"):
         super().__init__()
         D, dt = cfg.d_model, cfg.tparam_dtype
-        self.ln1 = nn.Parameter(torch.ones(D, dtype=dt, device=device),
-                                requires_grad=False)
-        self.attn = mla_init(cfg) if cfg.attn_impl == "mla" else Attention(cfg, device)
-        self.ln2 = nn.Parameter(torch.ones(D, dtype=dt, device=device),
-                                requires_grad=False)
-        self.mlp = MLP(D, cfg.d_ff, cfg.act, dt, device)
+
+        def norm():
+            return nn.Parameter(torch.ones(D, dtype=dt, device=device), requires_grad=False)
+
+        self.ln1 = norm()
+        self.attn = MLA(cfg, device) if cfg.attn_impl == "mla" else Attention(cfg, device)
+        self.ln2 = norm()
+        if letter == "E":
+            self.moe = MoE(cfg, device)
+        else:
+            self.mlp = MLP(D, cfg.d_ff, cfg.act, dt, device)
+        if cfg.enc_dec:
+            self.lnx = norm()
+            self.xattn = Attention(cfg, device)
 
 
 class MambaBlock(nn.Module):
@@ -160,9 +167,21 @@ class MambaBlock(nn.Module):
         self.mamba = Mamba2(cfg, device)
 
 
+class Encoder(nn.Module):
+    """An encoder-decoder's encoder: ``blocks`` (one attention + MLP
+    :class:`Block` a layer, no cross-attention) and ``norm``."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        enc_cfg = cfg.replace(enc_dec=False)
+        self.blocks = nn.ModuleList(Block(enc_cfg, device) for _ in range(cfg.n_enc_layers))
+        self.norm = nn.Parameter(torch.ones(cfg.d_model, dtype=cfg.tparam_dtype,
+                                            device=device), requires_grad=False)
+
+
 def _block(cfg, letter: str, device) -> nn.Module:
-    if letter in ("A", "D"):
-        return Block(cfg, device)
+    if letter in ("A", "D", "E"):
+        return Block(cfg, device, letter)
     if letter in ("M", "H"):
         return MambaBlock(cfg, device)
     return RWKV6(cfg, device)  # "R": the block is the RWKV6 leaves themselves
@@ -175,7 +194,7 @@ class Model(nn.Module):
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        _check_ported(cfg)
+        _check_letters(cfg)
         device = resolve_device(device)
         D, V, dt = cfg.d_model, cfg.vocab_size, cfg.tparam_dtype
         kw = dict(dtype=dt, device=device)
@@ -192,7 +211,11 @@ class Model(nn.Module):
             for seg in plan_segments(cfg)
         )
         if "H" in cfg.pattern:  # zamba2's single shared attention+MLP block
-            self.shared_attn = Block(cfg, device)
+            self.shared_attn = Block(cfg.replace(enc_dec=False), device)
+        if cfg.enc_dec:
+            self.encoder = Encoder(cfg, device)
+        if cfg.n_img_tokens:  # the VLM stub: normalises the patch embeddings
+            self.img_norm = nn.Parameter(torch.ones(D, **kw), requires_grad=False)
 
 
 @torch.no_grad()
@@ -220,27 +243,44 @@ def init_params(cfg, seed: int = 0, device=None) -> Model:
 # ---------------------------------------------------------------------------
 
 
-def _attn_block(cfg, p: Block, x, *, pos, cache, window=None, fresh=False):
-    """Pre-norm attention + FFN block.  Returns (x, new_cache, aux)."""
+def _attn_block(cfg, p: Block, x, *, pos, cache, window=None, fresh=False,
+                enc_out=None):
+    """Pre-norm attention (+ cross-attention to ``enc_out``) + FFN block.
+    Returns (x, new_cache, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(x, p.ln1)
     cache_pos = None if cache is None else cache.get("pos")
-    # ring iff the cache was allocated at window size (the allocation in
-    # make_decode_state is min(max_len, window))
-    ring = (
-        cache is not None
-        and cfg.swa_window is not None
-        and cache["att"]["k"].shape[1] == cfg.swa_window
-    )
-    a, new_att = _gqa(
-        cfg, p.attn, h,
-        pos=pos, cache=None if cache is None else cache["att"],
-        cache_pos=cache_pos, window=window, ring=ring, fresh=fresh,
-    )
+    if cfg.attn_impl == "mla":
+        a, new_att = mla_attention(
+            cfg, p.attn, h, positions=pos,
+            cache=None if cache is None else cache["att"], cache_pos=cache_pos,
+        )
+    else:
+        # ring iff the cache was allocated at window size (the allocation in
+        # make_decode_state is min(max_len, window))
+        ring = (
+            cache is not None
+            and cfg.swa_window is not None
+            and cache["att"]["k"].shape[1] == cfg.swa_window
+        )
+        a, new_att = _gqa(
+            cfg, p.attn, h,
+            pos=pos, cache=None if cache is None else cache["att"],
+            cache_pos=cache_pos, window=window, ring=ring, fresh=fresh,
+        )
     x = x + a
+    if cfg.enc_dec and enc_out is not None:
+        # K/V re-projected from enc_out at every call, as the JAX package does
+        hx = rmsnorm(x, p.lnx)
+        c, _ = attention(cfg, p.xattn, hx, causal=False, rope=False, kv_from=enc_out,
+                         flash=cfg.use_flash and (cache is None or fresh))
+        x = x + c
     h2 = rmsnorm(x, p.ln2)
-    hint = (lambda h: shard_hint(h, "dp", None, "model")) if cfg.act_sharding else None
-    m = mlp_apply(p.mlp, h2, cfg.act, hint=hint)
+    if hasattr(p, "moe"):
+        m, aux = moe_apply(cfg, p.moe, h2)
+    else:
+        hint = (lambda h: shard_hint(h, "dp", None, "model")) if cfg.act_sharding else None
+        m = mlp_apply(p.mlp, h2, cfg.act, hint=hint)
     return x + m, new_att, aux
 
 
@@ -316,18 +356,20 @@ def _gqa(cfg, p: Attention, x, *, pos, cache, cache_pos, window, ring, fresh):
 # ---------------------------------------------------------------------------
 
 
-def _apply_block(cfg, letter, p, x, *, pos, st, cache_pos, shared, fresh):
+def _apply_block(cfg, letter, p, x, *, pos, st, cache_pos, shared, fresh,
+                 enc_out=None):
     """Run one block.  ``st``: None (no state) or this block's decode
     state.  Returns (x, new_st, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new = None if st is None else {}
-    if letter in ("A", "D", "H"):
+    if letter in ("A", "D", "E", "H"):
         # an H layer runs the shared attention block first (zamba2), with
         # its own KV cache, then its own mamba mixer
         cache = None if st is None else {"att": st["att"], "pos": cache_pos}
         x, new_att, aux = _attn_block(
             cfg, shared if letter == "H" else p, x,
             pos=pos, cache=cache, window=cfg.swa_window, fresh=fresh,
+            enc_out=None if letter == "H" else enc_out,
         )
         if st is not None:
             new["att"] = new_att
@@ -360,9 +402,11 @@ class DecodeState:
     ``segs[i][r]["{j}{letter}"]`` is a dict of tensors, shaped as the JAX
     package's ``_block_state`` shapes them (without the reps axis):
 
-    - ``A``/``D``: ``att`` = ``{"k", "v"}``, each ``[B, L, KV, hd]`` in
-      ``cfg.dtype``, where L is ``max_len``, or the sliding window when
-      that is smaller (a ring: position p at slot p % L);
+    - ``A``/``D``/``E``: ``att`` = ``{"k", "v"}``, each ``[B, L, KV, hd]``
+      in ``cfg.dtype``, where L is ``max_len``, or the sliding window when
+      that is smaller (a ring: position p at slot p % L); under MLA
+      ``att`` = ``{"ckv"}`` ``[B, max_len, r + dr]``, the latent and the
+      rotary key;
     - ``M``: ``conv_x`` ``[B, K-1, d_in]``, ``conv_B``/``conv_C``
       ``[B, K-1, n]`` (the convolutions' last inputs, ``cfg.dtype``) and
       ``ssm`` ``[B, nh, head_dim, n]`` f32;
@@ -371,14 +415,17 @@ class DecodeState:
     - ``R``: ``shift_tm``/``shift_cm`` ``[B, D]`` (``cfg.dtype``) and
       ``wkv`` ``[B, H, N, N]`` f32.
 
-    ``pos`` [B] int32 is the position the next token takes."""
+    ``pos`` [B] int32 is the position the next token takes; ``enc_out``
+    [B, enc_seq, D] the encoder's output (an encoder-decoder's decode
+    steps cross-attend to it), else None."""
 
     segs: list
     pos: torch.Tensor
+    enc_out: Optional[torch.Tensor] = None
 
 
 def _trunk(cfg, params: Model, x, *, pos, state: Optional[DecodeState] = None,
-           fresh: bool = False):
+           fresh: bool = False, enc_out=None):
     """Run all segments.  Returns (x, new_state, aux_total)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     shared = getattr(params, "shared_attn", None)
@@ -390,7 +437,7 @@ def _trunk(cfg, params: Model, x, *, pos, state: Optional[DecodeState] = None,
                 x, new_b, aux_b = _apply_block(
                     cfg, letter, params.segs[si][r][key], x, pos=pos, st=st,
                     cache_pos=None if state is None else state.pos,
-                    shared=shared, fresh=fresh,
+                    shared=shared, fresh=fresh, enc_out=enc_out,
                 )
                 if cfg.act_sharding:
                     x = shard_hint(x, "dp", None, None)
@@ -402,11 +449,48 @@ def _trunk(cfg, params: Model, x, *, pos, state: Optional[DecodeState] = None,
     return x, state, aux_total
 
 
+def _sinusoid(S: int, D: int) -> torch.Tensor:
+    pos = np.arange(S)[:, None]
+    i = np.arange(D // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / D)
+    return torch.from_numpy(np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+                            .astype(np.float32))
+
+
+def _enc_block(cfg, p: Block, x):
+    """One encoder block: non-causal self-attention without rotary
+    positions, then the MLP."""
+    h = rmsnorm(x, p.ln1)
+    a, _ = attention(cfg.replace(enc_dec=False), p.attn, h, causal=False, rope=False,
+                     flash=cfg.use_flash)
+    x = x + a
+    return x + mlp_apply(p.mlp, rmsnorm(x, p.ln2), cfg.act)
+
+
+def _enc_input(cfg, frames):
+    """The encoder's input: frames [B, Se, D] plus sinusoidal positions."""
+    return frames.to(cfg.tdtype) + _sinusoid(frames.shape[1], cfg.d_model).to(
+        device=frames.device, dtype=cfg.tdtype)
+
+
+def _encode(cfg, params: Model, frames):
+    """Whisper-style encoder over precomputed frame embeddings (the stub
+    frontend of the JAX package).  frames: [B, Se, D]."""
+    x = _enc_input(cfg, frames)
+    for p in params.encoder.blocks:
+        x = _enc_block(cfg, p, x)
+    return rmsnorm(x, params.encoder.norm)
+
+
 def _embed_inputs(cfg, params: Model, batch):
-    """tokens → (x, positions)."""
+    """tokens (+ the VLM's image prefix) → (x, positions)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = params.embed.to(cfg.tdtype)[tokens.long()]
+    if cfg.n_img_tokens and "img_emb" in batch:
+        img = rmsnorm(batch["img_emb"].to(cfg.tdtype), params.img_norm)
+        x = torch.cat([img, x], dim=1)
+        S = x.shape[1]
     pos = torch.arange(S, device=x.device).expand(B, S)
     return x, pos
 
@@ -419,10 +503,14 @@ def _unembed(cfg, params: Model):
 
 @torch.no_grad()
 def forward(cfg, params: Model, batch):
-    """Forward over the whole batch (no state).  Returns (logits, aux)."""
+    """Forward over the whole batch (no state).  Returns (logits, aux);
+    a VLM's logits are the text positions' only."""
     x, pos = _embed_inputs(cfg, params, batch)
-    x, _, aux = _trunk(cfg, params, x, pos=pos)
+    enc_out = _encode(cfg, params, batch["enc_frames"]) if cfg.enc_dec else None
+    x, _, aux = _trunk(cfg, params, x, pos=pos, enc_out=enc_out)
     x = rmsnorm(x, params.final_norm)
+    if cfg.n_img_tokens and "img_emb" in batch:
+        x = x[:, batch["img_emb"].shape[1]:]
     return x @ _unembed(cfg, params), aux
 
 
@@ -433,20 +521,27 @@ def forward(cfg, params: Model, batch):
 
 def make_decode_state(cfg, batch_size: int, max_len: int, *, start_pos=None,
                       device=None) -> DecodeState:
-    """Empty decode state: zeroed caches and recurrent states, ``pos`` =
-    ``start_pos`` or 0."""
-    _check_ported(cfg)
+    """Empty decode state: zeroed caches and recurrent states (and a
+    zeroed ``enc_out`` for an encoder-decoder), ``pos`` = ``start_pos``
+    or 0."""
+    _check_letters(cfg)
     device = resolve_device(device)
     L = max_len
     if cfg.swa_window is not None:
         L = min(max_len, cfg.swa_window)  # ring buffer
     shape = (batch_size, L, cfg.n_kv_heads, cfg.hd)
 
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=cfg.tdtype, device=device)
+
     def block_state(letter: str) -> dict:
         st = {}
-        if letter in ("A", "D", "H"):
-            st["att"] = {"k": torch.zeros(shape, dtype=cfg.tdtype, device=device),
-                         "v": torch.zeros(shape, dtype=cfg.tdtype, device=device)}
+        if letter in ("A", "D", "E", "H"):
+            if cfg.attn_impl == "mla":
+                st["att"] = {"ckv": zeros(batch_size, max_len,
+                                          cfg.kv_lora_rank + cfg.qk_rope_head_dim)}
+            else:
+                st["att"] = {"k": zeros(*shape), "v": zeros(*shape)}
         if letter in ("M", "H"):
             st.update((k, v[0]) for k, v in
                       init_mamba2_state(cfg, batch_size, 1, device).items())
@@ -465,18 +560,24 @@ def make_decode_state(cfg, batch_size: int, max_len: int, *, start_pos=None,
     else:
         pos = torch.as_tensor(start_pos, dtype=torch.int32, device=device).expand(
             batch_size).clone()
-    return DecodeState(segs=segs, pos=pos)
+    enc_out = zeros(batch_size, cfg.enc_seq, cfg.d_model) if cfg.enc_dec else None
+    return DecodeState(segs=segs, pos=pos, enc_out=enc_out)
 
 
 @torch.no_grad()
 def prefill(cfg, params: Model, batch, max_len: int):
     """Run the prompt through the model filling fresh caches.
     Returns (last_logits [B, V], state).  ``max_len`` is the total cache
-    capacity."""
+    capacity; a VLM's image prefix counts toward it.  An encoder-decoder
+    encodes ``batch["enc_frames"]`` first and keeps the output in the
+    state for the decode steps."""
     x, pos = _embed_inputs(cfg, params, batch)
     state = make_decode_state(cfg, x.shape[0], max(max_len, x.shape[1]),
                               device=x.device)
-    x, state, _ = _trunk(cfg, params, x, pos=pos, state=state, fresh=True)
+    if cfg.enc_dec:
+        state.enc_out = _encode(cfg, params, batch["enc_frames"])
+    x, state, _ = _trunk(cfg, params, x, pos=pos, state=state, fresh=True,
+                         enc_out=state.enc_out)
     x = rmsnorm(x[:, -1:, :], params.final_norm)
     return (x @ _unembed(cfg, params))[:, 0], state
 
@@ -487,6 +588,6 @@ def decode_step(cfg, params: Model, tokens, state: DecodeState):
     state updated in place."""
     x = params.embed.to(cfg.tdtype)[tokens.long()][:, None, :]
     pos = state.pos[:, None]
-    x, state, _ = _trunk(cfg, params, x, pos=pos, state=state)
+    x, state, _ = _trunk(cfg, params, x, pos=pos, state=state, enc_out=state.enc_out)
     x = rmsnorm(x, params.final_norm)
     return (x @ _unembed(cfg, params))[:, 0], state

@@ -281,6 +281,10 @@ FLASH_CASES = [
     (1, 517, 517, 2, 2, 80, True, 129, None),       # window 129: one tile and one key
     (1, 300, 640, 2, 1, 64, False, 129, 600),       # window, not causal, with sk_valid
     (1, 260, 130, 2, 2, 120, True, None, None),     # Sq > Sk
+    (1, 1500, 1500, 12, 12, 64, False, None, None), # whisper's encoder: non-causal, Sk 1500
+    (2, 448, 1500, 12, 12, 64, False, None, None),  # whisper's cross-attention
+    (1, 384, 384, 48, 8, 128, True, None, None),    # grok: d 128, GQA 6:1
+    (1, 300, 300, 16, 8, 128, True, None, None),    # internvl2: d 128, GQA 2:1
 ]
 FLASH_TOL = {torch.float32: 5e-4, torch.bfloat16: 5e-2}
 FLASH_ROUTE = {torch.float32: "flash_attention_simt", torch.bfloat16: "flash_attention_wgmma"}
@@ -376,6 +380,43 @@ def test_lm_prefill_flash_matches_torch_attention(cuda):
         assert fa.launches["flash_attention"] == (cfg.n_layers if use_flash else 0)
         assert fa.launches[FLASH_ROUTE[cfg.tdtype]] == fa.launches["flash_attention"]
         step, _ = decode_step(c, params, tokens[:, 40], state)
+        outs.append((logits, step))
+    for a, b in zip(*outs):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() < 1e-3
+
+
+@pytest.mark.parametrize("arch,flash_calls", [
+    ("grok-1-314b", 4), ("deepseek-v2-lite-16b", 0), ("whisper-small", 10),
+    ("internvl2-2b", 4)])
+def test_four_families_prefill_on_the_card(cuda, arch, flash_calls):
+    """The reduced MoE, MLA, encoder-decoder and VLM models on the card:
+    use_flash True and False give the same prefill and decode logits in
+    f32, with one flash launch a layer, and for whisper one a layer of
+    the encoder and one a cross-attention, all on the FMA kernel."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = get_reduced(arch)
+    params = init_params(cfg, seed=0, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 20), device=cuda, generator=g)}
+    if cfg.enc_dec:
+        batch["enc_frames"] = torch.randn(2, cfg.enc_seq, cfg.d_model, device=cuda,
+                                          generator=g)
+    if cfg.n_img_tokens:
+        batch["img_emb"] = torch.randn(2, cfg.n_img_tokens, cfg.d_model, device=cuda,
+                                       generator=g)
+    nxt = torch.randint(0, cfg.vocab_size, (2,), device=cuda, generator=g)
+    outs = []
+    for use_flash in (True, False):
+        c = cfg.replace(use_flash=use_flash)
+        fa.reset_launches()
+        logits, state = prefill(c, params, batch, max_len=cfg.n_img_tokens + 24)
+        assert fa.launches["flash_attention"] == (flash_calls if use_flash else 0)
+        assert fa.launches["flash_attention_simt"] == fa.launches["flash_attention"]
+        step, _ = decode_step(c, params, nxt, state)
+        assert fa.launches["flash_attention"] == (flash_calls if use_flash else 0)
         outs.append((logits, step))
     for a, b in zip(*outs):
         assert torch.isfinite(a).all()

@@ -95,13 +95,7 @@ def test_lm_entry_points_without_device_need_a_gpu():
 
 
 def test_unported_features_raise():
-    """What the port still lacks raises and names the ROADMAP: the MoE
-    block (grok-1's letter E) and the sharded collectives."""
-    from repro_torch.configs import get_reduced
-    from repro_torch.models import init_params
-
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(get_reduced("grok-1-314b"), device="cpu")
+    """What the port still lacks is absent: the sharded collectives."""
     import repro_torch.comm
 
     assert not hasattr(repro_torch.comm, "ring_all_gather")

@@ -6,7 +6,10 @@ JAX package's weights carried over by ``params_from_jax`` and seeded
 numpy tokens: ``forward`` logits, ``prefill`` last logits and caches
 (ring and non-ring), and teacher-forced decode steps, with
 ``use_flash`` True (the flash wrapper's plain version on the CPU) and
-False (the torch ``chunked_attention``).  Everything is f32; the
+False (the torch ``chunked_attention``); then the reduced grok-1,
+deepseek-v2-lite, whisper-small and internvl2-2b the same way, with
+whisper's seeded frames and internvl2's seeded image prefix, and the
+summed MoE aux loss.  Everything is f32; the
 tolerance, 1e-4 on logits of magnitude ~1, allows for the two
 frameworks summing products in different orders over four layers.
 """
@@ -78,11 +81,107 @@ def test_cell_config_and_skip_reason_match_repro():
             assert g == w
 
 
-@pytest.mark.parametrize("arch", ["whisper-small", "deepseek-v2-lite-16b",
-                                  "internvl2-2b", "grok-1-314b"])
-def test_unported_architectures_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.init_params(tcfg.get_reduced(arch), device="cpu")
+# MoE (grok-1; deepseek-v2-lite, with MLA), the encoder-decoder (whisper)
+# and the VLM image prefix (internvl2)
+FAMILIES = ["grok-1-314b", "deepseek-v2-lite-16b", "whisper-small", "internvl2-2b"]
+FAMILY_PROMPT = 12
+
+
+def _family_batch(cfg, rng):
+    """Seeded tokens, and whisper's frames or internvl2's image prefix."""
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, FAMILY_PROMPT), dtype=np.int32)}
+    if cfg.enc_dec:
+        batch["enc_frames"] = rng.standard_normal(
+            (2, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    if cfg.n_img_tokens:
+        batch["img_emb"] = rng.standard_normal(
+            (2, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+@functools.lru_cache(maxsize=None)
+def _family_reference(arch):
+    """The JAX package's forward, prefill and teacher-forced decode steps
+    on one of the four families (reduced), computed once per process."""
+    cfg = jcfg.get_reduced(arch)
+    params = jm.init_params(cfg, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(7)
+    batch = _family_batch(cfg, rng)
+    feed = rng.integers(0, cfg.vocab_size, (N_DECODE, 2), dtype=np.int32)
+    max_len = cfg.n_img_tokens + FAMILY_PROMPT + N_DECODE
+    logits, aux = jax.jit(functools.partial(jm.forward, cfg))(params, batch)
+    pre = jax.jit(functools.partial(jm.prefill, cfg), static_argnames="max_len")
+    last, state = pre(params, batch, max_len=max_len)
+    step = jax.jit(functools.partial(jm.decode_step, cfg))
+    steps = []
+    for t in range(N_DECODE):
+        lg, state = step(params, jnp.asarray(feed[t]), state)
+        steps.append(np.asarray(lg))
+    return dict(params=jax.tree.map(np.asarray, params), batch=batch, feed=feed,
+                max_len=max_len, logits=np.asarray(logits), aux=float(aux),
+                last=np.asarray(last), steps=steps, pos=np.asarray(state["pos"]))
+
+
+@pytest.mark.parametrize("use_flash", [True, False])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_four_families_match_repro(arch, use_flash):
+    """init_params and params_from_jax build them, and forward (logits and
+    the summed MoE aux loss), prefill and 4 decode steps match the
+    reference within TOL on identical weights."""
+    ref = _family_reference(arch)
+    cfg = tcfg.get_reduced(arch, use_flash=use_flash)
+    assert tmodel.init_params(cfg, seed=1, device="cpu").embed.shape == (
+        cfg.vocab_size, cfg.d_model)
+    params = params_from_jax(cfg, ref["params"], device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in ref["batch"].items()}
+    logits, aux = forward(cfg, params, batch)
+    assert logits.shape == ref["logits"].shape and _err(logits, ref["logits"]) < TOL
+    assert float(aux) == pytest.approx(ref["aux"], rel=1e-5, abs=1e-7)
+    assert (float(aux) > 0) == ("E" in cfg.pattern)
+    last, state = tsteps.make_prefill_step(cfg, tcfg.ShapeSpec(
+        "prefill_tiny", ref["max_len"], 2, "prefill"))(params, batch)
+    assert _err(last, ref["last"]) < TOL
+    assert (state.enc_out is not None) == cfg.enc_dec
+    for t in range(N_DECODE):
+        lg, state = decode_step(cfg, params, torch.from_numpy(ref["feed"][t]), state)
+        assert _err(lg, ref["steps"][t]) < TOL, t
+    assert state.pos.tolist() == ref["pos"].tolist() == [
+        cfg.n_img_tokens + FAMILY_PROMPT + N_DECODE] * 2
+
+
+def test_unknown_block_letters_raise():
+    with pytest.raises(ValueError, match="unknown block letters"):
+        tmodel.init_params(tcfg.get_reduced("grok-1-314b", layer_pattern="X"), device="cpu")
+
+
+def test_whisper_flash_route_is_non_causal_in_prefill_only(monkeypatch):
+    """Under use_flash whisper's prefill sends every encoder layer, every
+    decoder self-attention and every cross-attention to the flash
+    wrapper: the encoder's and the cross-attention's non-causal, the
+    cross-attention's keys the encoder's frames; decode steps never do."""
+    from repro_torch.models import attention as tattn
+
+    calls = []
+    real = tmodel.flash_attention
+
+    def spy(q, k, v, **kw):
+        calls.append((q.shape[1], k.shape[1], kw["causal"]))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(tmodel, "flash_attention", spy)
+    monkeypatch.setattr(tattn, "flash_attention", spy)
+    ref = _family_reference("whisper-small")
+    cfg = tcfg.get_reduced("whisper-small")
+    params = params_from_jax(cfg, ref["params"], device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in ref["batch"].items()}
+    _, state = prefill(cfg, params, batch, max_len=ref["max_len"])
+    S, Se = FAMILY_PROMPT, cfg.enc_seq
+    assert sorted(calls) == sorted([(Se, Se, False)] * cfg.n_enc_layers
+                                   + [(S, S, True)] * cfg.n_layers
+                                   + [(S, Se, False)] * cfg.n_layers)
+    calls.clear()
+    decode_step(cfg, params, torch.from_numpy(ref["feed"][0]), state)
+    assert calls == []
 
 
 # ---------------------------------------------------------------------------
