@@ -6,14 +6,30 @@
 Phases, each asserted (any failure exits non-zero):
 
 1. build the CUDA kernels and the stream gate from
-   ``src/repro_torch/kernels/*/csrc``, one nvcc per source, all started
-   together; print ptxas's report of each kernel (registers, shared
-   memory, spills), the counts of ``HGMMA`` and ``UTMALDG`` instructions
-   in the flash library's SASS (its bf16 kernel runs on wgmma and TMA),
-   of ``HMMA`` and ``LDGSTS`` in the SSD scan library's (mma.sync and
-   cp.async) and of ``HMMA`` and ``UTMALDG`` in the wkv library's
-   (mma.sync and TMA), each asserted above 0, and ptxas's registers and
+   ``src/repro_torch/kernels/*/csrc`` into one library
+   (``kernels/build.py::kernel_library``: one nvcc a source, each with
+   its own flags, all started together, one link; only the stencil
+   takes ``--fmad=false``); print ptxas's report of each kernel
+   (registers, shared memory, spills), the counts of ``HGMMA`` and
+   ``UTMALDG`` instructions in ``flash_attention_wgmma_kernel``'s SASS
+   (its bf16 kernel runs on wgmma and TMA), of ``HMMA`` and ``LDGSTS``
+   in ``ssd_scan_tc_kernel``'s (mma.sync and cp.async) and of ``HMMA``
+   and ``UTMALDG`` in ``wkv6_tc_kernel``'s (mma.sync and TMA), counted
+   per function and each asserted above 0, and ptxas's registers and
    spills of ``wkv6_tc_kernel``;
+P. the profiler's primed sessions: ``torch.profiler``'s clock check
+   (spin kernels held to CUDA events, ``CheckedProfile``) over
+   PROBE_SESSIONS sessions with PROFILER_PRIMES primes each, in a fresh
+   process per case, after a profiled drain of the runtime, with none
+   and with all five of the port's kernels launched in each session;
+   asserts every session passed and lost fewer records at its start
+   than it had primes; one line a case.  ``python3 chip_smoke.py
+   --probe`` runs every case of the probe instead (``PROBE_CASES``: 0,
+   1, 2 and 5 kernels, lazy and ``CUDA_MODULE_LOADING=EAGER``, no
+   primes, then the primed cases) and nothing else; ``python3
+   chip_smoke.py --probe-train [ROUNDS]`` profiles one full-size train
+   step of phase T in ROUNDS pairs of sessions, without and with the
+   host's settle wait (``PROFILER_SETTLE_S``), and nothing else;
 2. hold every kernel to its plain PyTorch version on the card (the
    stencil kernels, ``torch.equal``: ``stencil5_group`` on strided
    slivers, the shared-memory route, an aliased output and a group over
@@ -122,7 +138,24 @@ V. verification and the trace: the paper-regime stencil (6 sweeps)
     launches; the per-layer check and the agreement;
 19. the bf16 flash kernel's time at the four new shapes (grok's,
     internvl2's, whisper's encoder and cross-attention) beside its
-    bound, its plain version and SDPA, as phase 13.
+    bound, its plain version and SDPA, as phase 13;
+T. training: h2o-danube-3-4b at full width and depth (bf16 weights, f32
+   AdamW moments, remat, 1 microbatch), ``make_train_step`` on
+   ``TokenPipeline`` batches of 2 x 4096 tokens from seed 0 (train_4k's
+   global batch of 256 cut to 2), a warm-up step and 4 timed steps
+   (loss, ``grad_norm``, lr, time, tokens/s and
+   ``train_model_flops_share`` = 6 N tokens / step time / 989 TFLOP/s
+   each), peak memory, one more step under the checked profiler, no
+   kernel launched (the torch twins under autograd, as the reference
+   trains through its jnp twins); (a) the same step in bf16 and in f32
+   at 2 layers of full width on the same batch and weights: loss within
+   1e-2 relative, ``grad_norm`` within 5e-2, every gradient leaf's
+   cosine >= 0.99; (b) at the reduced size, the state saved after step 2
+   restored into a fresh model and optimizer bit for bit, and step 3
+   from it within the distance of two uninterrupted step 3s.
+
+Every ``torch.profiler`` session of the run (phases 3 and S, the LM
+phases' prefill and decode, the train step) must pass its clock check.
 
 Phases 7-18 free each model before the next and print their peak
 device memory.  In an MoE model a near-tie between experts can route a
@@ -152,7 +185,6 @@ import statistics
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -314,9 +346,11 @@ def ptxas_report(log: str, kernel: str) -> list:
     return out
 
 
-def sass_counts(lib: Path, opcodes: tuple) -> dict:
-    """How many instructions of each opcode the library's SASS holds
-    (``cuobjdump -sass``)."""
+def sass_counts(lib: Path, opcodes: tuple, function: str) -> dict:
+    """How many instructions of each opcode the SASS of the library's
+    functions whose symbol contains ``function`` holds: the sections that
+    ``cuobjdump -sass`` heads ``Function : <symbol>``, all instances of a
+    template summed."""
     import os
     import shutil
 
@@ -324,8 +358,16 @@ def sass_counts(lib: Path, opcodes: tuple) -> dict:
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                          check=True, timeout=120).stdout
-    lines = out.splitlines()
-    return {op: sum(op in line for line in lines) for op in opcodes}
+    counts, inside, n_functions = dict.fromkeys(opcodes, 0), False, 0
+    for line in out.splitlines():
+        if "Function : " in line:
+            inside = function in line.split("Function : ", 1)[1]
+            n_functions += inside
+        elif inside:
+            for op in opcodes:
+                counts[op] += op in line
+    assert n_functions > 0, f"no function {function} in {lib.name}'s SASS"
+    return counts
 
 
 def numpy_grid(n: int, edge: float = 1.0) -> np.ndarray:
@@ -667,9 +709,6 @@ def run_stencil(repro_torch, apps, n, iters, nprocs, block, profile=False, **pol
     import contextlib
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as profiler
 
     from repro_torch.api import ExecutionPolicy, RuntimeConfig
 
@@ -678,7 +717,8 @@ def run_stencil(repro_torch, apps, n, iters, nprocs, block, profile=False, **pol
     policy = ExecutionPolicy(flush="async", channel="async", backend="torch",
                              **policy_kw)
     torch.cuda.reset_peak_memory_stats()
-    window = profiler(activities=[ProfilerActivity.CUDA]) if profile else contextlib.nullcontext()
+    window = (CheckedProfile(torch, "the main path's profiled run") if profile
+              else contextlib.nullcontext())
     with repro_torch.runtime(cfg, policy) as rt:
         with window:
             t0 = time.perf_counter()
@@ -695,13 +735,10 @@ def run_stencil(repro_torch, apps, n, iters, nprocs, block, profile=False, **pol
         clock = rt._exec_executor_obj._clock
         times = dict(record_s=t1 - t0, drain_s=t2 - t1, gather_s=t3 - t2,
                      timeout_log=list(clock.timeout_log), max_hold_s=clock.max_hold_s)
-    if profile:
+    if profile and window.ok:
         us = {"kernel_s": 0.0, "gate_s": 0.0}
-        for e in window.key_averages():
-            if e.device_type == DeviceType.CUDA:
-                t = getattr(e, "self_device_time_total", None) or getattr(
-                    e, "self_cuda_time_total", 0.0)
-                us["gate_s" if "gate_wait" in e.key else "kernel_s"] += t
+        for key, (t, _) in window.rows().items():
+            us["gate_s" if "gate_wait" in key else "kernel_s"] += t
         times.update({k: v / 1e6 for k, v in us.items()})
     return result, stats, times, torch.cuda.max_memory_allocated()
 
@@ -798,6 +835,11 @@ def phase_main_path(repro_torch, apps, ks) -> dict:
     prof_pairs = stream_gate.launches["gate_wait"]
     assert np.array_equal(result, want), "profiled run != host NumPy"
     window = prof_times["record_s"] + prof_times["drain_s"]
+    if "kernel_s" not in prof_times:
+        log_gate(prof_st, prof_times, prof_pairs)
+        log("    profiled run: the profiler failed its clock check; the pairs' bound "
+            "against it not measured")
+        return dict(launches=launches, fragments=frags)
     kernel_s = prof_times["kernel_s"]
     log(f"    profiled run after (torch.profiler, CUDA activity): kernels and copies "
         f"{kernel_s:.4f} s of device time over record + drain ({window:.3f} s, share "
@@ -863,18 +905,13 @@ def profiled_device_s(window) -> dict:
     it ``host_copy_s`` (the copies to and from the host: the tenants'
     scatter and gather, which no gated pair may hold) and ``gate_s`` (the
     gates: the device waiting on the host)."""
-    from torch.autograd import DeviceType
-
     out = {"kernel_s": 0.0, "copy_s": 0.0, "host_copy_s": 0.0, "gate_s": 0.0}
-    for e in window.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            t = getattr(e, "self_device_time_total", None) or getattr(
-                e, "self_cuda_time_total", 0.0)
-            key = ("gate_s" if "gate_wait" in e.key else
-                   "copy_s" if e.key.startswith(("Memcpy", "Memset")) else "kernel_s")
-            out[key] += t / 1e6
-            if e.key.startswith(("Memcpy HtoD", "Memcpy DtoH")):
-                out["host_copy_s"] += t / 1e6
+    for name, (t, _) in window.rows().items():
+        key = ("gate_s" if "gate_wait" in name else
+               "copy_s" if name.startswith(("Memcpy", "Memset")) else "kernel_s")
+        out[key] += t / 1e6
+        if name.startswith(("Memcpy HtoD", "Memcpy DtoH")):
+            out["host_copy_s"] += t / 1e6
     return out
 
 
@@ -899,8 +936,6 @@ def run_serve(repro_torch, apps, grids, max_inflight, profile=False) -> dict:
     import threading
 
     import torch
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as profiler
 
     from repro_torch.serve import LatencyHistogram
 
@@ -933,7 +968,8 @@ def run_serve(repro_torch, apps, grids, max_inflight, profile=False) -> dict:
                for i in range(len(grids))]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    window = profiler(activities=[ProfilerActivity.CUDA]) if profile else contextlib.nullcontext()
+    window = (CheckedProfile(torch, "the concurrent serving load") if profile
+              else contextlib.nullcontext())
     with srv:
         with window:
             gc.callbacks.append(on_gc)
@@ -971,7 +1007,7 @@ def run_serve(repro_torch, apps, grids, max_inflight, profile=False) -> dict:
     out.update(hist=hist, n_admitted=adm.n_admitted, n_rejected=adm.n_rejected,
                peak_inflight=adm.peak_inflight, tenants=tenants,
                n_failed=sum(st.n_failed for st in tenants.values()))
-    if profile:
+    if profile and window.ok:
         out.update(profiled_device_s(window))
     return out
 
@@ -1083,6 +1119,13 @@ def phase_serve(repro_torch, apps, ks) -> dict:
     for i in range(SERVE_TENANTS):
         for got, w in zip(r["results"][i], want[i]):
             assert np.array_equal(got, w), f"profiled run: tenant {i} != host NumPy"
+    log_gate_timeouts(r, pairs)
+    assert r["gate_timeouts"] == 0, f"profiled run: {r['gate_timeouts']} gate timeouts"
+    if "kernel_s" not in r:
+        log("[S] profiled concurrent run: the profiler failed its clock check; the pairs' "
+            "bound against it not measured")
+        log(f"[S] phase S took {time.perf_counter() - t_phase:.1f} s")
+        return info["concurrent"]
     dev = r["kernel_s"] + r["copy_s"]
     # what a pair may hold: kernels and device-to-device copies, never the
     # tenants' copies to and from the host (those queue outside the pairs)
@@ -1097,8 +1140,6 @@ def phase_serve(repro_torch, apps, ks) -> dict:
         f"copies (bound {bound:.4f} s = {PAIR_FACTOR} x profiler + {PAIR_SLACK_S * 1e6:.0f} us "
         f"a pair), {r['compute_s'] / on_device:.3f} x them without the host copies (bound "
         f"{tight:.4f} s)")
-    log_gate_timeouts(r, pairs)
-    assert r["gate_timeouts"] == 0, f"profiled run: {r['gate_timeouts']} gate timeouts"
     assert r["compute_s"] <= bound, (r["compute_s"], bound)
     assert r["compute_s"] <= tight, ("a pair held host copies", r["compute_s"], tight)
     log(f"[S] phase S took {time.perf_counter() - t_phase:.1f} s")
@@ -1366,58 +1407,285 @@ def rel_err(a, b) -> float:
 
 
 # torch.profiler's clock check: a spin kernel before and one after the
-# profiled call, each also timed by CUDA events (~5 ms at the H100's
+# profiled window, each also timed by CUDA events (~5 ms at the H100's
 # clock; a shorter spin ahead keeps the stream busy past the first
 # event); the profiler's readings of both must be within
-# PROFILER_CLOCK_TOL of the events'.  Once more than one of the port's
-# kernel libraries is loaded, the profiler loses kernel records and
-# misreads durations on the chip machine (PERF.md), which this catches.
-SPIN_CYCLES, PROFILER_CLOCK_TOL = 10_000_000, 0.03
+# PROFILER_CLOCK_TOL of the events'.  On the chip machine a session
+# loses its first device records (1-3 after a profiled drain of the
+# runtime's worker threads, up to 27 late in a full run; phase P,
+# PERF.md), so the LM sessions lost their first spin kernels.  (With one
+# library a kernel source it also lost records mid-session: hence
+# kernels/build.py's one library.)  A session therefore
+# starts with PROFILER_PRIMES launches of a one-element add, synchronised,
+# whose records may be lost, and counts device time only between its
+# first and last spin kernels.  A session over one train step (~21,400
+# records) also lost its last records, the last spin kernel among them,
+# once in the full run and in some sessions of a probe (PERF.md; not
+# reproduced by ``--probe-train`` on other machines).  So a session
+# also ends with PROFILER_PRIMES adds after its last spin kernel, whose
+# records may be lost, and the host waits PROFILER_SETTLE_S after the
+# profiler starts and again before it stops.
+SPIN_CYCLES, PROFILER_CLOCK_TOL, PROFILER_PRIMES = 10_000_000, 0.03, 64
+PROFILER_SETTLE_S = 0.25
+
+
+class CheckedProfile:
+    """``torch.profiler`` (CUDA activity) over a window bracketed by
+    spin kernels that CUDA events time as well, after ``primes`` launches
+    that absorb the records the session loses at its start.  After the
+    window, ``ok`` says whether the profiler found all three spin kernels
+    with both timed ones within ``PROFILER_CLOCK_TOL`` of the events,
+    ``lost`` how many of the primes at its start it did not record,
+    ``lost_tail`` how many of those at its end (after the last spin
+    kernel found), and ``rows()``
+    gives the device time by kernel name between the first and the last
+    spin kernel, the spin kernels left out.  The host waits ``settle_s``
+    after the profiler starts and before it stops."""
+
+    sessions: list = []  # (what, passed) of every session in this process
+
+    def __init__(self, torch, what: str, quiet: bool = False, primes: int = PROFILER_PRIMES,
+                 settle_s: float = PROFILER_SETTLE_S):
+        self.torch, self.what, self.quiet, self.primes = torch, what, quiet, primes
+        self.settle_s = settle_s
+        self.ok, self.spins, self.lost, self.by_prof, self.by_events = False, 0, 0, [], []
+        self.records, self.lost_tail = 0, 0
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        self._ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        self._one = one = torch.zeros(1, device=DEVICE)
+        torch.cuda._sleep(1)  # loads the spin kernel's module outside the session
+        torch.cuda.synchronize()
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.prof.__enter__()
+        time.sleep(self.settle_s)
+        for _ in range(self.primes):
+            one.add_(1.0)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES // 4)
+        self._ev[0].record()
+        torch.cuda._sleep(SPIN_CYCLES)
+        self._ev[1].record()
+        return self
+
+    def __exit__(self, *exc):
+        from torch.autograd import DeviceType
+
+        torch = self.torch
+        if exc[0] is None:
+            self._ev[2].record()
+            torch.cuda._sleep(SPIN_CYCLES)
+            self._ev[3].record()
+            for _ in range(self.primes):
+                self._one.add_(1.0)
+            torch.cuda.synchronize()
+            time.sleep(self.settle_s)
+        self.prof.__exit__(*exc)
+        if exc[0] is not None:
+            return False
+        device = [e for e in self.prof.events() if e.device_type == DeviceType.CUDA]
+        spins = sorted((e for e in device if "spin_kernel" in e.name),
+                       key=lambda e: e.time_range.start)
+        start = spins[0].time_range.start if spins else float("inf")
+        self.lost = self.primes - sum(e.time_range.start < start for e in device)
+        end = spins[-1].time_range.end if spins else float("inf")
+        self.lost_tail = self.primes - sum(e.time_range.start > end for e in device)
+        self._window = [e for e in device if "spin_kernel" not in e.name
+                        and spins and start <= e.time_range.start <= spins[-1].time_range.end]
+        self.spins, self.records = len(spins), len(device)
+        self.by_prof = [e.time_range.elapsed_us() / 1e3 for e in spins[1:]]
+        self.by_events = [self._ev[0].elapsed_time(self._ev[1]),
+                          self._ev[2].elapsed_time(self._ev[3])]
+        self.ok = len(spins) == 3 and all(abs(p / e - 1) <= PROFILER_CLOCK_TOL
+                                          for p, e in zip(self.by_prof, self.by_events))
+        CheckedProfile.sessions.append((self.what, self.ok))
+        if self.quiet:
+            return False
+        log(f"    profiler clock check over {self.what}: spin kernels "
+            f"{[round(t, 4) for t in self.by_prof]} ms by the profiler (of {len(spins)} "
+            f"found, 3 launched), {[round(t, 4) for t in self.by_events]} ms by CUDA events: "
+            f"{'passed' if self.ok else 'FAILED'}; {self.lost} of {self.primes} primes lost "
+            f"at the start, {self.lost_tail} at the end")
+        if not self.ok:
+            log(f"    profiler: lost spin kernels or a clock off CUDA events by more than "
+                f"{PROFILER_CLOCK_TOL:.0%}; device time over {self.what} not measured")
+        return False
+
+    def clock_errors(self) -> list:
+        return [p / e - 1 for p, e in zip(self.by_prof, self.by_events)]
+
+    def events(self) -> list:
+        """The device records between the first and last spin kernel."""
+        return list(self._window)
+
+    def rows(self) -> dict:
+        """Device microseconds and records by name over ``events()``."""
+        out = {}
+        for e in self._window:
+            us, n = out.get(e.name, (0.0, 0))
+            out[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        return out
+
+
+# phase P, the profiler probe: each case in a fresh process (a loaded
+# library cannot be unloaded), PROBE_SESSIONS profiler sessions one
+# after another (as the LM phases profile one session after another in
+# one process), each over one of torch's kernels and one launch of each
+# of the first k of the port's kernels (PROBE_KERNELS' order) between
+# the clock check's spin kernels.  A label starts with "kernels:k"; the
+# port's library is loaded when k > 0 or the runtime drains.  label ->
+# (environment, primes a session, whether a profiled drain of the
+# runtime comes first): the cases without primes show lost records as
+# lost spin kernels; PRIMED_CASES, with PROFILER_PRIMES primes a session
+# as every measured session has, count the records a session loses at
+# its start after the runtime's worker threads drained under the
+# profiler, as phase 3 drains them before the LM phases.  main() runs
+# PRIMED_CASES; ``--probe`` runs every case.
+PROBE_SESSIONS = 4
+PRIMED_CASES = {f"kernels:{k} primed, after a profiled drain": ({}, PROFILER_PRIMES, True)
+                for k in (0, 5)}
+PROBE_CASES = {
+    **{f"kernels:{k}": ({}, 0, False) for k in (0, 1, 2, 5)},
+    **{f"kernels:{k} eager": ({"CUDA_MODULE_LOADING": "EAGER"}, 0, False)
+       for k in (0, 1, 2, 5)},
+    **PRIMED_CASES,
+}
+# the kernel that each library's probe launch runs, as the profiler names it
+PROBE_KERNELS = {"stencil": "jacobi_sweep_kernel", "flash_attention": "flash_attention_wgmma",
+                 "ssd_scan": "ssd_scan_tc_kernel", "wkv6": "wkv6_tc_kernel",
+                 "stream_gate": "gate_wait_kernel"}
+
+
+def probe_launches(torch, names) -> list:
+    """One thunk a library in ``names``, each launching that library's
+    kernel once on small inputs made here."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba2_scan import ops as ssd
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv
+    from repro_torch.kernels.stencil import ops as ks
+    from repro_torch.kernels.stream_gate import ops as gate
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    grid = torch.rand(258, 258, dtype=torch.float64, device=DEVICE, generator=gen)
+    qkv = flash_inputs(torch, gen, 1, 256, 256, 2, 2, 64, torch.bfloat16)
+    xs = ssd_inputs(torch, gen, 1, 128, 2, 64, 64, torch.bfloat16)
+    rs = wkv_inputs(torch, gen, 1, 128, 2, 64, torch.bfloat16)
+
+    def gate_once():
+        g = gate.StreamGate(DEVICE)
+        g.open(g.wait(torch.cuda.current_stream(), 1.0))
+        torch.cuda.synchronize()
+        g.close()
+
+    thunks = {"stencil": lambda: ks.jacobi_sweep(grid),
+              "flash_attention": lambda: fa.flash_attention(*qkv, causal=True),
+              "ssd_scan": lambda: ssd.ssd_scan(*xs), "wkv6": lambda: wkv.wkv6(*rs),
+              "stream_gate": gate_once}
+    return [thunks[n] for n in names]
+
+
+def probe_case(label: str) -> int:
+    """One case of phase P (``PROBE_CASES[label]``; the parent sets its
+    environment), in this process: prints one line ``PROBE {json}``,
+    per session the spin kernels found, the clock's errors, whether it
+    passed and the port's kernel records found."""
+    t0 = time.perf_counter()
+    import torch
+
+    how = label.split()[0]  # "kernels:k"
+    _, primes, drain_first = PROBE_CASES[label]
+    names = list(PROBE_KERNELS)[:int(how.split(":")[1])]
+    x = torch.ones(1 << 20, device=DEVICE)
+    thunks = probe_launches(torch, names)
+    for fn in thunks:  # each kernel's module loaded before any session, as in use
+        fn()
+    torch.cuda.synchronize()
+    if drain_first:  # the runtime's worker threads drain under the profiler
+        import repro_torch
+        from repro_torch import apps
+
+        run_stencil(repro_torch, apps, MAIN_N // 2, MAIN_ITERS, MAIN_PROCS, MAIN_BLOCK // 2,
+                    profile=True)
+    t_ready = time.perf_counter() - t0
+    sessions = []
+    for i in range(PROBE_SESSIONS):
+        with CheckedProfile(torch, f"probe {label}, session {i}", quiet=True,
+                            primes=primes) as window:
+            x.add_(1.0)  # one of torch's own kernels
+            for fn in thunks:
+                fn()
+        events = window.events()
+        sessions.append(dict(
+            ok=window.ok, spins=window.spins, clock_errors=window.clock_errors(),
+            lost=window.lost if primes else None,
+            lost_tail=window.lost_tail if primes else None,
+            recorded={n: sum(PROBE_KERNELS[n] in e.name for e in events) for n in names},
+            torch_kernel=any("elementwise" in e.name for e in events)))
+    print("PROBE " + json.dumps(dict(label=label, launched=len(names),
+                                     sessions=sessions, ready_s=t_ready,
+                                     sessions_s=time.perf_counter() - t0 - t_ready)),
+          flush=True)
+    return 0
+
+
+def probe_passed(session: dict) -> bool:
+    """A probe session passed: the clock check, every launched kernel
+    recorded once, torch's kernel recorded."""
+    return (session["ok"] and session["torch_kernel"]
+            and all(n == 1 for n in session["recorded"].values()))
+
+
+def phase_profiler_probe(cases=PRIMED_CASES) -> dict:
+    """Phase P: every case of ``cases`` in a fresh process, one line a
+    case; asserts every primed session passed and lost fewer records at
+    its start than it had primes.  Returns the cases' records by
+    label."""
+    import os
+
+    out = {}
+    for label in cases:
+        env = {**os.environ, **PROBE_CASES[label][0]}
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--probe-case",
+                               label], capture_output=True, text=True, env=env, timeout=300)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("PROBE ")]
+        if proc.returncode != 0 or not lines:
+            log(f"[P] case {label}: the probe process failed (exit {proc.returncode})\n"
+                f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+            raise AssertionError(f"profiler probe case {label} failed")
+        r = out[label] = json.loads(lines[-1][len("PROBE "):])
+        passed = [probe_passed(ss) for ss in r["sessions"]]
+        lost = [ss["lost"] for ss in r["sessions"]]
+        tail = [ss["lost_tail"] for ss in r["sessions"]]
+        log(f"[P] {label:42s}: {sum(passed)} of {len(passed)} sessions passed "
+            f"({''.join('+' if ok else '-' for ok in passed)}); spins found "
+            f"{[ss['spins'] for ss in r['sessions']]} of 3"
+            f"{f'; records lost at the start {lost} of {PROBE_CASES[label][1]} primes' if lost[0] is not None else ''}"
+            f"{f', at the end {tail}' if lost[0] is not None else ''}"
+            f"; worst clock error "
+            f"{max((abs(e) for ss in r['sessions'] for e in ss['clock_errors']), default=0):.2%}"
+            f"; port kernels recorded {[sum(v > 0 for v in ss['recorded'].values()) for ss in r['sessions']]}"
+            f" of {r['launched']}; set-up {r['ready_s']:.1f} s, sessions {r['sessions_s']:.1f} s "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if PROBE_CASES[label][1]:
+            assert all(passed) and all(n < PROBE_CASES[label][1] for n in lost), (
+                label, r["sessions"])
+    return out
 
 
 def profile_device(torch, what: str, fn) -> float:
     """Device time by kernel over one call of ``fn``, from torch.profiler;
     returns the total in ms, or 0.0 (not measured) when the profiler
-    records none or fails its clock check (``SPIN_CYCLES``)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    torch.cuda._sleep(1)  # loads the spin kernel's module outside the session
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(SPIN_CYCLES // 4)
-        ev[0].record()
-        torch.cuda._sleep(SPIN_CYCLES)
-        ev[1].record()
+    records none or fails its clock check (``CheckedProfile``)."""
+    with CheckedProfile(torch, what) as window:
         fn()
-        ev[2].record()
-        torch.cuda._sleep(SPIN_CYCLES)
-        ev[3].record()
-        torch.cuda.synchronize()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0.0)
-
-    spins = sorted((e for e in prof.events()
-                    if e.device_type == DeviceType.CUDA and "spin_kernel" in e.name),
-                   key=lambda e: e.time_range.start)
-    by_prof = [e.time_range.elapsed_us() / 1e3 for e in spins[1:]]
-    by_events = [ev[0].elapsed_time(ev[1]), ev[2].elapsed_time(ev[3])]
-    # kernel rows only: an aten op's row repeats its kernels' device time
-    rows = sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key),
-                  reverse=True)
-    total = sum(r[0] for r in rows)
-    log(f"    profiler clock check over {what}: spin kernels "
-        f"{[round(t, 4) for t in by_prof]} ms by the profiler (of {len(spins)} found, 3 "
-        f"launched), {[round(t, 4) for t in by_events]} ms by CUDA events")
-    if len(spins) != 3 or any(abs(p / e - 1) > PROFILER_CLOCK_TOL
-                              for p, e in zip(by_prof, by_events)):
-        log(f"    profiler: lost spin kernels or a clock off CUDA events by more than "
-            f"{PROFILER_CLOCK_TOL:.0%}; device time over {what} not measured")
+    if not window.ok:
         return 0.0
+    rows = sorted(((us, n, key) for key, (us, n) in window.rows().items()), reverse=True)
+    total = sum(r[0] for r in rows)
     if total <= 0:
         log(f"    profiler: no device time recorded over {what} (not measured)")
         return 0.0
@@ -2083,6 +2351,245 @@ def phase_recurrent_times(ssd, wkv, torch, gen, launches: dict, err: dict) -> li
     return records
 
 
+# the train phase: h2o-danube-3-4b at full width and depth (DANUBE), bf16
+# parameters, f32 AdamW moments, remat on, 1 microbatch; train_4k's
+# sequence of 4096 at a global batch of TRAIN_BATCH, cut from 256 to fit
+# one card; TokenPipeline batches from seed 0; one warm-up step, then
+# TRAIN_STEPS timed steps, then one more under the profiler
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 4
+# (a) bf16 against f32 on the same batch and weights, 2 layers at full width
+TRAIN_LOSS_REL, TRAIN_GNORM_REL, TRAIN_GRAD_COS = 1e-2, 5e-2, 0.99
+
+
+def train_grads(torch, cfg, params, batch):
+    """One train step of ``params`` on ``batch``; returns (metrics, the
+    gradients by parameter name as the optimizer received them)."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamW
+
+    seen = {}
+    opt = AdamW(lr=1e-4, grad_transform=lambda g: seen.setdefault("g", g))
+    _, _, m = make_train_step(cfg, opt)(params, opt.init(params), batch)
+    return m, seen["g"]
+
+
+def danube_training(torch, n_total: int):
+    """The train phase's set-up: h2o-danube-3-4b (DANUBE) at full size on
+    the card, AdamW over ``n_total`` steps, ``TokenPipeline`` batches of
+    TRAIN_BATCH x TRAIN_SEQ tokens from seed 0.  Returns (cfg, params,
+    opt_state, step_fn, pipe)."""
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.steps import cell_config, make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamW, linear_warmup_cosine
+
+    arch, expect = DANUBE
+    cfg = cell_config(arch, "train_4k").replace(microbatches=1)
+    assert {k: getattr(cfg, k) for k in expect} == expect, cfg
+    assert cfg.remat and cfg.param_dtype == "bfloat16" and cfg.opt_state_dtype == "float32"
+    params = init_params(cfg, seed=0, device=DEVICE)
+    opt = AdamW(lr=linear_warmup_cosine(1e-4, warmup=2, total_steps=n_total),
+                moment_dtype=cfg.opt_state_dtype)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH, seed=0))
+    return cfg, params, opt.init(params), make_train_step(cfg, opt), pipe
+
+
+def phase_train(torch, card: str, tag: str = "T") -> dict:
+    """The training path at full size, then (a) bf16 against f32 and (b)
+    an exact resume on the card.  Returns its measurements."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_scan as ssd
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import batch_to_device, train_state_tree
+    from repro_torch.models import init_params
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamW, linear_warmup_cosine
+
+    arch = DANUBE[0]
+    seq = TRAIN_SEQ
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, opt_state, step_fn, pipe = danube_training(torch, 1 + TRAIN_STEPS + 1)
+    n_params = sum(p.numel() for p in params.parameters())
+    tokens = TRAIN_BATCH * seq
+    for mod in (fa, ssd, wkv):
+        mod.reset_launches()
+    rows = []
+    for step in range(1 + TRAIN_STEPS):
+        batch = batch_to_device(cfg, pipe.batch_at(step), DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        row = dict(step=step, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                   lr=float(m["lr"]), s=dt, tokens_per_s=tokens / dt,
+                   mfu=6 * n_params * tokens / dt / BF16_FLOP_PER_S)
+        rows.append(row)
+        log(f"[{tag}] step {step}{' (warm-up)' if step == 0 else ''}: loss {row['loss']:.4f} "
+            f"grad_norm {row['grad_norm']:.4f} lr {row['lr']:.3e} | {dt:.3f} s, "
+            f"{row['tokens_per_s']:.0f} tokens/s, model-flops share {row['mfu']:.4f}")
+        assert np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"]), row
+    timed = rows[1:]
+    step_s = statistics.median(r["s"] for r in timed)
+    peak = torch.cuda.max_memory_allocated()
+    kernel_launches = {k: v for mod in (fa, ssd, wkv) for k, v in mod.launches.items()}
+    assert not any(kernel_launches.values()), kernel_launches
+    batch = batch_to_device(cfg, pipe.batch_at(1 + TRAIN_STEPS), DEVICE)
+    holder = {}
+
+    def profiled_step():
+        holder["out"] = step_fn(params, opt_state, batch)
+
+    dev_ms = profile_device(torch, "one train step", profiled_step)
+    params, opt_state, m = holder.pop("out")
+    assert np.isfinite(float(m["loss"])), m
+    flops = 6 * n_params * tokens
+    log(f"[{tag}] {arch} training at full width and depth ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters in bf16, f32 AdamW moments, remat "
+        f"on, 1 microbatch): train_4k cut to {TRAIN_BATCH} x {seq} tokens a step; "
+        f"median of {TRAIN_STEPS} steps {step_s:.3f} s, {tokens / step_s:.0f} tokens/s, "
+        f"train_model_flops_share {flops / step_s / BF16_FLOP_PER_S:.4f} (6 N tokens = "
+        f"{flops:.3e} FLOP at 989 TFLOP/s; the bound with remat, 8 N tokens, "
+        f"{8 * n_params * tokens / BF16_FLOP_PER_S:.3f} s); peak device memory "
+        f"{peak / 1e9:.2f} GB; kernel launches {kernel_launches} (the torch twins under "
+        f"autograd, as the reference trains through its jnp twins); {card}")
+    if dev_ms:
+        log(f"[{tag}] one train step: device busy {dev_ms:.1f} ms of a {step_s * 1e3:.1f} ms "
+            f"median step, idle share {1 - dev_ms / (step_s * 1e3):.3f}")
+    out = dict(step_s=step_s, tokens_per_s=tokens / step_s, peak=peak, rows=rows,
+               mfu=flops / step_s / BF16_FLOP_PER_S, dev_ms=dev_ms, n_params=n_params)
+    del params, opt_state, step_fn, holder, m, batch
+    torch.cuda.empty_cache()
+
+    # (a) bf16 against f32: 2 layers at full width, one step each on the
+    # same batch and weights (the f32 model holds the bf16 weights exactly)
+    cfg2 = cfg.replace(n_layers=2)
+    p16 = init_params(cfg2, seed=1, device=DEVICE)
+    cfg32 = cfg2.replace(dtype="float32", param_dtype="float32")
+    p32 = Model(cfg32, DEVICE)
+    with torch.no_grad():
+        for a, b in zip(p32.parameters(), p16.parameters()):
+            a.copy_(b)
+    batch = batch_to_device(cfg2, pipe.batch_at(0), DEVICE)
+    m16, g16 = train_grads(torch, cfg2, p16, batch)
+    m32, g32 = train_grads(torch, cfg32, p32, batch)
+    loss_rel = abs(float(m16["loss"]) / float(m32["loss"]) - 1)
+    gn_rel = abs(float(m16["grad_norm"]) / float(m32["grad_norm"]) - 1)
+    cos = {n: float(torch.nn.functional.cosine_similarity(
+        g16[n].float().reshape(1, -1), g32[n].reshape(1, -1)))
+        for n in g32}
+    worst = min(cos, key=cos.get)
+    log(f"[{tag}a] the lowest gradient cosines: "
+        f"{[(n, round(c, 5)) for n, c in sorted(cos.items(), key=lambda kv: kv[1])[:4]]}")
+    log(f"[{tag}a] bf16 against f32, {cfg2.n_layers} layers at full width, one step on the "
+        f"same batch and weights: loss {float(m16['loss']):.5f} / {float(m32['loss']):.5f} "
+        f"(relative difference {loss_rel:.2e}, tol {TRAIN_LOSS_REL}), grad_norm "
+        f"{float(m16['grad_norm']):.4f} / {float(m32['grad_norm']):.4f} ({gn_rel:.2e}, tol "
+        f"{TRAIN_GNORM_REL}); worst gradient cosine {cos[worst]:.5f} ({worst}; tol "
+        f"{TRAIN_GRAD_COS}) over {len(cos)} leaves")
+    assert loss_rel <= TRAIN_LOSS_REL and gn_rel <= TRAIN_GNORM_REL, (loss_rel, gn_rel)
+    assert cos[worst] >= TRAIN_GRAD_COS, (worst, cos[worst])
+    out.update(loss_rel=loss_rel, gnorm_rel=gn_rel, worst_cos=cos[worst])
+    del p16, p32, g16, g32, m16, m32, batch
+    torch.cuda.empty_cache()
+
+    # (b) resume on the card, at the reduced size: save after step 2,
+    # restore into a fresh model and optimizer, step 3 from both
+    rc = get_reduced(arch)
+    ropt = AdamW(lr=linear_warmup_cosine(1e-3, warmup=1, total_steps=4))
+    rstep = make_train_step(rc, ropt)
+    rpipe = TokenPipeline(DataConfig(vocab_size=rc.vocab_size, seq_len=64, global_batch=4))
+    rb = [batch_to_device(rc, rpipe.batch_at(i), DEVICE) for i in range(3)]
+    model = init_params(rc, seed=0, device=DEVICE)
+    st = ropt.init(model)
+    for i in range(2):
+        model, st, _ = rstep(model, st, rb[i])
+
+    def flat(model, st):
+        return {**{f"p.{n}": p.detach().clone() for n, p in model.named_parameters()},
+                **{f"mu.{n}": t.clone() for n, t in st.mu.items()},
+                **{f"nu.{n}": t.clone() for n, t in st.nu.items()}, "step": st.step.clone()}
+
+    saved = flat(model, st)
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp)
+        mgr.save(2, train_state_tree(model, st))  # async: on the host before it returns
+        twin = init_params(rc, seed=0, device=DEVICE)  # a second uninterrupted run
+        twin_st = ropt.init(twin)
+        with torch.no_grad():
+            for a, b in zip(twin.parameters(), model.parameters()):
+                a.copy_(b)
+        for n in st.mu:
+            twin_st.mu[n].copy_(st.mu[n])
+            twin_st.nu[n].copy_(st.nu[n])
+        twin_st = twin_st._replace(step=st.step.clone())
+        model, st, _ = rstep(model, st, rb[2])  # in place, racing the save
+        mgr.wait()
+        fresh = init_params(rc, seed=7, device=DEVICE)
+        fresh_st = ropt.init(fresh)
+        _, step = mgr.restore(train_state_tree(fresh, fresh_st))
+    assert step == 2
+    restored = flat(fresh, fresh_st)
+    bad = [k for k in saved if not torch.equal(saved[k], restored[k])]
+    assert not bad, f"restored state differs from the saved one: {bad[:5]}"
+    fresh, fresh_st, _ = rstep(fresh, fresh_st, rb[2])
+    twin, twin_st, _ = rstep(twin, twin_st, rb[2])
+    after, resumed, again = flat(model, st), flat(fresh, fresh_st), flat(twin, twin_st)
+    d_resume = max(float((after[k].double() - resumed[k].double()).abs().max()) for k in after)
+    d_twin = max(float((after[k].double() - again[k].double()).abs().max()) for k in after)
+    log(f"[{tag}b] resume at the reduced size ({rc.n_layers} layers, d_model {rc.d_model}): "
+        f"the state saved after step 2 restored into a fresh model and optimizer bit for bit "
+        f"({len(saved)} tensors); step 3 from it against the uninterrupted step 3: max "
+        f"|diff| {d_resume:.3e}; two uninterrupted runs of step 3: {d_twin:.3e}")
+    assert d_resume <= d_twin, (d_resume, d_twin)
+    out.update(d_resume=d_resume, d_twin=d_twin)
+    del model, st, fresh, fresh_st, twin, twin_st
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_build(libs) -> None:
+    """Phase 1: the kernel library, the ptxas report and the SASS checks;
+    every module of ``libs`` loads that one library."""
+    t0 = time.perf_counter()
+    from repro_torch.kernels import build
+
+    lib = build.kernel_library()  # one nvcc a source, all started together, one link
+    assert all(mod.load() is lib for mod in libs)
+    log(f"[1] built {lib.path.name} in {time.perf_counter() - t0:.2f} s (nvcc "
+        f"{', '.join(f'{n} {t:.2f} s' for n, t in lib.compile_seconds.items())}, in "
+        f"parallel, then one link; {lib.seconds:.2f} s in all)")
+    for line in lib.log.splitlines():
+        if line.startswith("== ") or any(w in line for w in ("Compiling entry", "registers",
+                                                             "spill")):
+            log(f"    {line.strip()}")
+    sass = sass_counts(lib.path, ("HGMMA", "UTMALDG"), "flash_attention_wgmma_kernel")
+    log(f"[1] flash_attention_wgmma_kernel SASS: {sass['HGMMA']} HGMMA (wgmma) and "
+        f"{sass['UTMALDG']} UTMALDG (TMA load) instructions")
+    assert sass["HGMMA"] > 0 and sass["UTMALDG"] > 0, sass
+    sass = sass_counts(lib.path, ("HMMA", "LDGSTS"), "ssd_scan_tc_kernel")
+    log(f"[1] ssd_scan_tc_kernel SASS: {sass['HMMA']} HMMA (mma.sync) and {sass['LDGSTS']} "
+        f"LDGSTS (cp.async) instructions")
+    assert sass["HMMA"] > 0 and sass["LDGSTS"] > 0, sass
+    # the wkv kernel's bf16 route loads by the TMA, not cp.async
+    sass = sass_counts(lib.path, ("HMMA", "UTMALDG", "LDGSTS"), "wkv6_tc_kernel")
+    log(f"[1] wkv6_tc_kernel SASS: {sass['HMMA']} HMMA (mma.sync), {sass['UTMALDG']} UTMALDG "
+        f"(TMA load) and {sass['LDGSTS']} LDGSTS (cp.async) instructions")
+    assert sass["HMMA"] > 0 and sass["UTMALDG"] > 0, sass
+    # the path's instance: head size 64, TMA loads
+    for entry, regs, spill_st, spill_ld in ptxas_report(lib.log, "wkv6_tc_kernelILi64ELb1E"):
+        log(f"[1] ptxas, wkv6_tc_kernel<64, TMA> ({entry}): {regs} registers, "
+            f"{spill_st} bytes spill stores, {spill_ld} bytes spill loads")
+
+
 def main() -> int:
     import torch
 
@@ -2104,36 +2611,8 @@ def main() -> int:
     card = card_line()
     log(f"[0] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"numpy {np.__version__} | python {sys.version.split()[0]}")
-    t0 = time.perf_counter()
-    libs = (ks, fa, ssd, wkv, stream_gate)
-    with ThreadPoolExecutor(max_workers=len(libs)) as pool:  # one nvcc per source
-        builds = [pool.submit(mod.load) for mod in libs]
-        built = [b.result() for b in builds]
-    log(f"[1] built {', '.join(b.path.name for b in built)} in "
-        f"{time.perf_counter() - t0:.2f} s (nvcc "
-        f"{', '.join(f'{b.seconds:.2f} s' for b in built)}, in parallel)")
-    for b in built:
-        for line in b.log.splitlines():
-            if any(w in line for w in ("Compiling entry", "registers", "spill")):
-                log(f"    {line.strip()}")
-    sass = sass_counts(built[libs.index(fa)].path, ("HGMMA", "UTMALDG"))
-    log(f"[1] flash library SASS: {sass['HGMMA']} HGMMA (wgmma) and {sass['UTMALDG']} "
-        f"UTMALDG (TMA load) instructions")
-    assert sass["HGMMA"] > 0 and sass["UTMALDG"] > 0, sass
-    sass = sass_counts(built[libs.index(ssd)].path, ("HMMA", "LDGSTS"))
-    log(f"[1] SSD scan library SASS: {sass['HMMA']} HMMA (mma.sync) and {sass['LDGSTS']} "
-        f"LDGSTS (cp.async) instructions")
-    assert sass["HMMA"] > 0 and sass["LDGSTS"] > 0, sass
-    # the wkv library's bf16 kernel loads by the TMA, not cp.async
-    sass = sass_counts(built[libs.index(wkv)].path, ("HMMA", "UTMALDG", "LDGSTS"))
-    log(f"[1] wkv library SASS: {sass['HMMA']} HMMA (mma.sync), {sass['UTMALDG']} UTMALDG "
-        f"(TMA load) and {sass['LDGSTS']} LDGSTS (cp.async) instructions")
-    assert sass["HMMA"] > 0 and sass["UTMALDG"] > 0, sass
-    # the path's instance: head size 64, TMA loads
-    for entry, regs, spill_st, spill_ld in ptxas_report(built[libs.index(wkv)].log,
-                                                        "wkv6_tc_kernelILi64ELb1E"):
-        log(f"[1] ptxas, wkv6_tc_kernel<64, TMA> ({entry}): {regs} registers, "
-            f"{spill_st} bytes spill stores, {spill_ld} bytes spill loads")
+    phase_build((ks, fa, ssd, wkv, stream_gate))
+    phase_profiler_probe()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     err = phase_kernels_vs_plain(ks, torch, gen)
     flash_err = phase_flash_vs_plain(fa, torch, gen)
@@ -2209,6 +2688,12 @@ def main() -> int:
         records.append(phase_flash_times(fa, torch, gen, "19", path,
                                          shapes[(Sq, Sk, H, KV, d, causal)], flash_err))
         torch.cuda.empty_cache()
+    phase_train(torch, card)
+    checked = CheckedProfile.sessions
+    failed = [what for what, ok in checked if not ok]
+    log(f"[P] profiler sessions of this run that passed the clock check: "
+        f"{len(checked) - len(failed)} of {len(checked)}; failed: {failed}")
+    assert not failed, failed
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": records}))
     log(card)
@@ -2220,5 +2705,78 @@ def main() -> int:
     return 0
 
 
+def probe_main() -> int:
+    """``--probe``: phase 1's build, then every case of the profiler
+    probe (``PROBE_CASES``)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_scan as ssd
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    from repro_torch.kernels import stencil as ks
+    from repro_torch.kernels import stream_gate
+
+    log(f"[0] {card_line()} | torch {torch.__version__} cuda {torch.version.cuda}")
+    phase_build((ks, fa, ssd, wkv, stream_gate))
+    phase_profiler_probe(PROBE_CASES)
+    return 0
+
+
+def probe_train_main(rounds: int) -> int:
+    """``--probe-train [ROUNDS]``: phase 1's build, then ROUNDS pairs of
+    profiler sessions over one full-size train step of phase T, each pair
+    one session without the host's settle wait and one with
+    PROFILER_SETTLE_S; one line a session, then how many of each passed."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_scan as ssd
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    from repro_torch.kernels import stencil as ks
+    from repro_torch.kernels import stream_gate
+    from repro_torch.launch.train import batch_to_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"[0] {card_line()} | torch {torch.__version__} cuda {torch.version.cuda}")
+    phase_build((ks, fa, ssd, wkv, stream_gate))
+    cfg, params, opt_state, step_fn, pipe = danube_training(torch, 1 + 2 * rounds)
+    batch = batch_to_device(cfg, pipe.batch_at(0), DEVICE)
+    state = [params, opt_state]
+
+    def step():
+        state[0], state[1], _ = step_fn(state[0], state[1], batch)
+
+    step()  # warm-up
+    torch.cuda.synchronize()
+    passed = {0.0: [], PROFILER_SETTLE_S: []}
+    for i in range(rounds):
+        for settle in passed:
+            with CheckedProfile(torch, f"one train step, settle {settle} s", quiet=True,
+                                settle_s=settle) as window:
+                step()
+            passed[settle].append(window.ok)
+            log(f"[PT] round {i} settle {settle} s: {'passed' if window.ok else 'FAILED'}; "
+                f"spins found {window.spins} of 3; records {window.records}; primes lost "
+                f"{window.lost} of {PROFILER_PRIMES} at the start, {window.lost_tail} at the "
+                f"end; clock errors "
+                f"{[round(e, 5) for e in window.clock_errors()]}")
+    log(f"[PT] sessions over one train step that passed the clock check: "
+        + "; ".join(f"settle {k} s: {sum(v)} of {len(v)}" for k, v in passed.items())
+        + f"; {card_line()}")
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) in (2, 3) and sys.argv[1] == "--probe-train":
+        sys.exit(probe_train_main(int(sys.argv[2]) if len(sys.argv) == 3 else 6))
+    if len(sys.argv) == 3 and sys.argv[1] == "--probe-case":
+        sys.exit(probe_case(sys.argv[2]))
+    if len(sys.argv) == 2 and sys.argv[1] == "--probe":
+        sys.exit(probe_main())
     sys.exit(main())

@@ -37,12 +37,12 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from pathlib import Path
 from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import BuiltLibrary, build_library
+from repro_torch.kernels import refuse_grad
+from repro_torch.kernels.build import BuiltLibrary, kernel_library
 
 __all__ = [
     "flash_attention",
@@ -55,7 +55,6 @@ __all__ = [
     "load",
 ]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 NEG_INF = -1e30
 BLOCK_Q = BLOCK_K = 128  # the wgmma kernel's query and key tiles (wg::kBlockQ, kBlockK)
 MAX_HEAD_DIM = 128  # kMaxD
@@ -88,8 +87,9 @@ def _count(route: str) -> None:
 
 
 def load() -> BuiltLibrary:
-    """Build (at first use) and load the flash attention library."""
-    built = build_library("flash_attention", SOURCE)
+    """The kernel library (built at first use, every kernel in it) with
+    this module's functions declared."""
+    built = kernel_library()
     with _bind_lock:
         if built.path not in _bound:
             p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
@@ -299,6 +299,7 @@ def flash_attention(
     there the mean of v over the masked keys of the tiles it ran, which
     depends on its tiles; the port does not copy that.  A model's
     prefill never makes such a row (a causal row always sees key 0)."""
+    refuse_grad("flash_attention", q, k, v)
     sk_valid = _check(q, k, v, sk_valid)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,

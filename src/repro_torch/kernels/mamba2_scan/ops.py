@@ -25,16 +25,15 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from pathlib import Path
 from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import BuiltLibrary, build_library
+from repro_torch.kernels import refuse_grad
+from repro_torch.kernels.build import BuiltLibrary, kernel_library
 
 __all__ = ["ssd_scan", "ssd_scan_plain", "launches", "reset_launches", "load"]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 MAX_STATE = 128  # kMaxState in ssd_scan.cu: the largest n the kernels hold
 TC_CHUNK = 64  # tc::kQ in ssd_scan.cu: tokens per chunk of the tensor-core kernel
 
@@ -60,8 +59,9 @@ def _count(route: str) -> None:
 
 
 def load() -> BuiltLibrary:
-    """Build (at first use) and load the SSD scan library."""
-    built = build_library("ssd_scan", SOURCE)
+    """The kernel library (built at first use, every kernel in it) with
+    this module's functions declared."""
+    built = kernel_library()
     with _bind_lock:
         if built.path not in _bound:
             p, i64 = ctypes.c_void_p, ctypes.c_int64
@@ -168,6 +168,7 @@ def ssd_scan(
     on the card, where bf16 runs the tensor-core kernel and float32 the
     FMA kernel.  Returns (y ``[b, s, h, p]`` in x's dtype, final state
     ``[b, h, p, n]`` float32)."""
+    refuse_grad("ssd_scan", x, dt, A, B, C, init_state)
     _check(x, dt, A, B, C, init_state)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, init_state)

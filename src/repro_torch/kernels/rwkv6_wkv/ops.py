@@ -22,16 +22,15 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from pathlib import Path
 from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import BuiltLibrary, build_library
+from repro_torch.kernels import refuse_grad
+from repro_torch.kernels.build import BuiltLibrary, kernel_library
 
 __all__ = ["wkv6", "wkv6_plain", "launches", "reset_launches", "load"]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv6.cu"
 MAX_HEAD = 64  # kMaxN in wkv6.cu: the largest head size the kernels hold
 TC_CHUNK = 64  # tc::kQ in wkv6.cu: tokens per chunk of the tensor-core kernel
 
@@ -57,8 +56,9 @@ def _count(route: str) -> None:
 
 
 def load() -> BuiltLibrary:
-    """Build (at first use) and load the wkv library."""
-    built = build_library("wkv6", SOURCE)
+    """The kernel library (built at first use, every kernel in it) with
+    this module's functions declared."""
+    built = kernel_library()
     with _bind_lock:
         if built.path not in _bound:
             p, i64 = ctypes.c_void_p, ctypes.c_int64
@@ -162,6 +162,7 @@ def wkv6(
     tensor-core kernel (``T < 2**31``) and float32 the FMA kernel.
     Returns (y ``[B, T, H, N]`` in r's dtype, final state ``[B, H, N,
     N]`` float32)."""
+    refuse_grad("wkv6", r, k, v, w, u, init_state)
     _check(r, k, v, w, u, init_state)
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, init_state)

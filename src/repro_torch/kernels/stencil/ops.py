@@ -25,12 +25,11 @@ from __future__ import annotations
 import collections
 import ctypes
 import threading
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.build import BuiltLibrary, build_library
+from repro_torch.kernels.build import BuiltLibrary, kernel_library
 
 __all__ = [
     "stencil5_block",
@@ -50,9 +49,6 @@ __all__ = [
     "load",
 ]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "stencil.cu"
-# both kernels must round as the NumPy interpreter does: no a*b+c contracts
-NVCC_FLAGS = ("--fmad=false",)
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -96,8 +92,9 @@ def _count_group(shapes) -> None:
 
 
 def load() -> BuiltLibrary:
-    """Build (at first use) and load the stencil kernel library."""
-    built = build_library("stencil", SOURCE, flags=NVCC_FLAGS)
+    """The kernel library (built at first use, every kernel in it) with
+    this module's functions declared."""
+    built = kernel_library()
     with _bind_lock:
         if built.path not in _bound:
             p, i32 = ctypes.c_void_p, ctypes.c_int

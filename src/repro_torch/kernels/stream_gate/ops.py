@@ -16,15 +16,13 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import BuiltLibrary, build_library
+from repro_torch.kernels.build import BuiltLibrary, kernel_library
 
 __all__ = ["StreamGate", "launches", "reset_launches", "load"]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "stream_gate.cu"
 RING = 256  # kRing in stream_gate.cu: the timed-out epochs the gate keeps
 
 launches = {"gate_wait": 0}
@@ -39,8 +37,9 @@ def reset_launches() -> None:
 
 
 def load() -> BuiltLibrary:
-    """Build (at first use) and load the gate library."""
-    built = build_library("stream_gate", SOURCE)
+    """The kernel library (built at first use, every kernel in it) with
+    this module's functions declared."""
+    built = kernel_library()
     with _bind_lock:
         if built.path not in _bound:
             lib, p = built.lib, ctypes.c_void_p

@@ -1,8 +1,15 @@
-"""Step builders: prefill_step / serve_step per (arch × shape).
+"""Step builders: train_step / prefill_step / serve_step per (arch × shape).
 
-The port of the serving half of ``repro.launch.steps``.  The train step,
-``cell()`` and the sharding specs come with the training slice (see
-ROADMAP.md): on one GPU there is nothing to shard.
+The port of ``repro.launch.steps``.  ``cell()``, ``Cell`` and the
+sharding specs take a JAX ``Mesh``; they come with the mesh and sharding
+slice (see ROADMAP.md).
+
+The train step differentiates ``loss_fn`` with torch autograd through
+the torch twins of the kernels (``cfg.use_flash=False``), as the JAX
+package trains through its jnp twins: no kernel has a backward.  It
+turns gradients on for the parameters of the model it trains for the
+length of the step and back off after, and AdamW updates the
+parameters and moments in place.
 """
 from __future__ import annotations
 
@@ -12,9 +19,11 @@ import torch
 
 from repro_torch.configs import SHAPES, get_config
 from repro_torch.configs.base import ModelConfig, ShapeSpec
-from repro_torch.models import decode_step, prefill
+from repro_torch.models import decode_step, loss_fn, prefill
+from repro_torch.optim import AdamW
 
-__all__ = ["make_serve_step", "make_prefill_step", "cell_config", "skip_reason"]
+__all__ = ["make_train_step", "make_optimizer", "make_serve_step", "make_prefill_step",
+           "cell_config", "skip_reason"]
 
 # archs whose attention is quadratic-full → long_500k is skipped
 _FULL_ATTN_SKIP = {
@@ -47,6 +56,60 @@ def cell_config(arch_id: str, shape_name: str, **overrides) -> ModelConfig:
         kw["microbatches"] = 1
     kw.update(overrides)
     return cfg.replace(**kw) if kw else cfg
+
+
+def make_optimizer(cfg) -> AdamW:
+    return AdamW(lr=3e-4, moment_dtype=cfg.opt_state_dtype)
+
+
+def _grads(cfg, params, named: dict, batch):
+    """(loss, gradients by parameter name) of ``loss_fn`` on ``batch``;
+    a parameter the loss does not reach gets zeros, as in JAX."""
+    with torch.enable_grad():
+        loss, _ = loss_fn(cfg, params, batch)
+        grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+    return loss.detach(), {n: torch.zeros_like(p) if g is None else g
+                           for (n, p), g in zip(named.items(), grads)}
+
+
+def make_train_step(cfg, optimizer: Optional[AdamW] = None) -> Callable:
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: gradients of the mean loss over ``cfg.microbatches``
+    microbatches (accumulated in f32, split along the batch), then one
+    AdamW update in place."""
+    cfg = cfg.replace(use_flash=False)
+    opt = optimizer or make_optimizer(cfg)
+
+    def train_step(params, opt_state, batch):
+        mb = cfg.microbatches
+        named = dict(params.named_parameters())
+        wanted = {n: p.requires_grad for n, p in named.items()}
+        try:
+            for p in named.values():
+                p.requires_grad_(True)
+            if mb <= 1:
+                loss, grads = _grads(cfg, params, named, batch)
+            else:
+                grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                         for n, p in named.items()}
+                loss = 0.0
+                for i in range(mb):
+                    mbatch = {k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
+                              for k, v in batch.items()}
+                    l, g = _grads(cfg, params, named, mbatch)
+                    for n, gn in g.items():
+                        grads[n] += gn.float()
+                    loss = loss + l
+                    del g
+                grads = {n: g / mb for n, g in grads.items()}
+                loss = loss / mb
+        finally:
+            for n, p in named.items():
+                p.requires_grad_(wanted[n])
+        new_params, new_opt, opt_metrics = opt.update(grads, opt_state, params)
+        return new_params, new_opt, {"loss": loss, **opt_metrics}
+
+    return train_step
 
 
 def make_prefill_step(cfg, shape: ShapeSpec) -> Callable:

@@ -16,6 +16,7 @@ from .model import (
     decode_step,
     forward,
     init_params,
+    loss_fn,
     make_decode_state,
     plan_segments,
     prefill,
@@ -26,6 +27,7 @@ __all__ = [
     "DecodeState",
     "init_params",
     "forward",
+    "loss_fn",
     "prefill",
     "decode_step",
     "make_decode_state",

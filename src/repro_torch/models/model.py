@@ -35,15 +35,25 @@ twins of the JAX package's jnp code instead (``chunked_attention``,
 runs them.  MLA and the MoE block have no kernel on either route (the
 JAX package has none for them): MLA runs ``chunked_attention`` and its
 absorbed latent form, the MoE block batched matmuls.
+
+``loss_fn`` (training) differentiates ``forward``'s body under autograd;
+the kernels have no backward, so it runs with ``use_flash=False``, as
+the JAX package trains through its jnp twins.  Parameters are made with
+``requires_grad=False`` and ``init_params``, ``forward``, ``prefill`` and
+``decode_step`` run under ``no_grad``; the train step
+(``launch/steps.py``) turns gradients on for the length of a step.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_attention
 
@@ -73,6 +83,7 @@ __all__ = [
     "plan_segments",
     "init_params",
     "forward",
+    "loss_fn",
     "prefill",
     "decode_step",
     "make_decode_state",
@@ -426,24 +437,35 @@ class DecodeState:
 
 def _trunk(cfg, params: Model, x, *, pos, state: Optional[DecodeState] = None,
            fresh: bool = False, enc_out=None):
-    """Run all segments.  Returns (x, new_state, aux_total)."""
+    """Run all segments.  Returns (x, new_state, aux_total).  Under
+    autograd with ``cfg.remat`` and no state, each rep of a segment with
+    more than one runs under ``torch.utils.checkpoint`` (the JAX package's
+    ``jax.checkpoint`` of a segment's body)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     shared = getattr(params, "shared_attn", None)
+    remat = cfg.remat and state is None and torch.is_grad_enabled()
     for si, seg in enumerate(plan_segments(cfg)):
         for r in range(seg.reps):
-            for j, letter in enumerate(seg.body):
-                key = f"{j}{letter}"
-                st = None if state is None else state.segs[si][r][key]
-                x, new_b, aux_b = _apply_block(
-                    cfg, letter, params.segs[si][r][key], x, pos=pos, st=st,
-                    cache_pos=None if state is None else state.pos,
-                    shared=shared, fresh=fresh, enc_out=enc_out,
-                )
-                if cfg.act_sharding:
-                    x = shard_hint(x, "dp", None, None)
-                aux_total = aux_total + aux_b
-                if state is not None:
-                    state.segs[si][r][key] = new_b
+            def rep(x, aux, si=si, r=r, seg=seg):
+                for j, letter in enumerate(seg.body):
+                    key = f"{j}{letter}"
+                    st = None if state is None else state.segs[si][r][key]
+                    x, new_b, aux_b = _apply_block(
+                        cfg, letter, params.segs[si][r][key], x, pos=pos, st=st,
+                        cache_pos=None if state is None else state.pos,
+                        shared=shared, fresh=fresh, enc_out=enc_out,
+                    )
+                    if cfg.act_sharding:
+                        x = shard_hint(x, "dp", None, None)
+                    aux = aux + aux_b
+                    if state is not None:
+                        state.segs[si][r][key] = new_b
+                return x, aux
+
+            if remat and seg.reps > 1:
+                x, aux_total = checkpoint(rep, x, aux_total, use_reentrant=False)
+            else:
+                x, aux_total = rep(x, aux_total)
     if state is not None:
         state.pos = state.pos + x.shape[1]
     return x, state, aux_total
@@ -475,10 +497,17 @@ def _enc_input(cfg, frames):
 
 def _encode(cfg, params: Model, frames):
     """Whisper-style encoder over precomputed frame embeddings (the stub
-    frontend of the JAX package).  frames: [B, Se, D]."""
+    frontend of the JAX package).  frames: [B, Se, D].  Under autograd
+    each block is rematerialised where the JAX package's scanned encoder
+    is (``cfg.remat`` and ``cfg.scan_layers``, scans not unrolled)."""
     x = _enc_input(cfg, frames)
+    remat = (cfg.remat and cfg.scan_layers and not cfg.unroll_scans
+             and torch.is_grad_enabled())
     for p in params.encoder.blocks:
-        x = _enc_block(cfg, p, x)
+        if remat:
+            x = checkpoint(functools.partial(_enc_block, cfg, p), x, use_reentrant=False)
+        else:
+            x = _enc_block(cfg, p, x)
     return rmsnorm(x, params.encoder.norm)
 
 
@@ -486,7 +515,7 @@ def _embed_inputs(cfg, params: Model, batch):
     """tokens (+ the VLM's image prefix) → (x, positions)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = params.embed.to(cfg.tdtype)[tokens.long()]
+    x = _embed(cfg, params, tokens)
     if cfg.n_img_tokens and "img_emb" in batch:
         img = rmsnorm(batch["img_emb"].to(cfg.tdtype), params.img_norm)
         x = torch.cat([img, x], dim=1)
@@ -495,16 +524,23 @@ def _embed_inputs(cfg, params: Model, batch):
     return x, pos
 
 
+def _embed(cfg, params: Model, tokens):
+    """The token embeddings (a gather).  ``F.embedding``: on the card its
+    backward sums each row's gradient in f32 before it rounds to the
+    weight's dtype, where an indexed read's backward adds the tokens'
+    contributions into bf16 one by one."""
+    return F.embedding(tokens.long(), params.embed.to(cfg.tdtype))
+
+
 def _unembed(cfg, params: Model):
     if cfg.tie_embeddings:
         return params.embed.to(cfg.tdtype).T
     return params.unembed.to(cfg.tdtype)
 
 
-@torch.no_grad()
-def forward(cfg, params: Model, batch):
-    """Forward over the whole batch (no state).  Returns (logits, aux);
-    a VLM's logits are the text positions' only."""
+def _forward(cfg, params: Model, batch):
+    """``forward``'s body, under whatever autograd mode the caller set
+    (``loss_fn`` differentiates it)."""
     x, pos = _embed_inputs(cfg, params, batch)
     enc_out = _encode(cfg, params, batch["enc_frames"]) if cfg.enc_dec else None
     x, _, aux = _trunk(cfg, params, x, pos=pos, enc_out=enc_out)
@@ -512,6 +548,33 @@ def forward(cfg, params: Model, batch):
     if cfg.n_img_tokens and "img_emb" in batch:
         x = x[:, batch["img_emb"].shape[1]:]
     return x @ _unembed(cfg, params), aux
+
+
+@torch.no_grad()
+def forward(cfg, params: Model, batch):
+    """Forward over the whole batch (no state).  Returns (logits, aux);
+    a VLM's logits are the text positions' only."""
+    return _forward(cfg, params, batch)
+
+
+def loss_fn(cfg, params: Model, batch):
+    """Next-token cross-entropy in f32 over the tokens whose label is
+    >= 0 (+ the MoE aux term).  Returns (loss, metrics).  Differentiable:
+    the train step calls it under autograd with the model's parameters
+    requiring grad and ``cfg.use_flash`` off (the kernels have no
+    backward; the JAX package trains through its jnp twins).  With
+    ``cfg.vocab_parallel_loss`` the JAX package builds the same values
+    from per-shard pieces; on one device both are this."""
+    logits, aux = _forward(cfg, params, batch)
+    labels = batch["labels"].long()
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    denom = torch.clamp(mask.sum(), min=1.0)
+    nll = ((logz - gold) * mask).sum() / denom
+    loss = nll + cfg.router_aux_weight * aux
+    return loss, {"nll": nll, "aux": aux, "tokens": denom}
 
 
 # ---------------------------------------------------------------------------
@@ -586,7 +649,7 @@ def prefill(cfg, params: Model, batch, max_len: int):
 def decode_step(cfg, params: Model, tokens, state: DecodeState):
     """One decode step.  tokens: [B] int → (logits [B, V], state), the
     state updated in place."""
-    x = params.embed.to(cfg.tdtype)[tokens.long()][:, None, :]
+    x = _embed(cfg, params, tokens)[:, None, :]
     pos = state.pos[:, None]
     x, state, _ = _trunk(cfg, params, x, pos=pos, state=state, enc_out=state.enc_out)
     x = rmsnorm(x, params.final_norm)
