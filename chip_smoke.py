@@ -81,6 +81,17 @@ V. verification and the trace: the paper-regime stencil (6 sweeps)
    passes it (five shifts of one 2048² block, written into a block
    slice) and on one whole sweep's 576 fragments, each beside the
    distinct-bytes bound and the five-operand bound;
+C. the paper's collectives (``repro_torch.comm``) on an NCCL group of
+   one rank on the card (one card gives NCCL one rank; the group must
+   start on NCCL, nothing falls back): ``jacobi_step_sharded`` on the
+   main path's 16386² f64 grid in both overlap modes, bit for bit the
+   CUDA ``jacobi_sweep`` and one host-NumPy sweep, with each ring hop's
+   post / compute / wait events printed and its time by CUDA events
+   beside the kernel's; ``ag_matmul`` and ``matmul_rs`` at h2o-danube's
+   MLP projection (x [8192, 3840] x w [3840, 10240] bf16) in both modes,
+   bit for bit ``torch.matmul``; ``ring_all_gather``,
+   ``ring_reduce_scatter``, ``halo_exchange`` (periodic and not) and
+   ``stencil_1d_sharded`` on the grid's rows against plain slicing;
 7. the LM path: h2o-danube-3-4b at full width and depth (24 layers,
    d_model 3840, 32/8 heads of 120, window 4096, bf16, random weights
    from seed 0) serving two prompts of 8192 seeded tokens —
@@ -152,7 +163,13 @@ T. training: h2o-danube-3-4b at full width and depth (bf16 weights, f32
    1e-2 relative, ``grad_norm`` within 5e-2, every gradient leaf's
    cosine >= 0.99; (b) at the reduced size, the state saved after step 2
    restored into a fresh model and optimizer bit for bit, and step 3
-   from it within the distance of two uninterrupted step 3s.
+   from it within the distance of two uninterrupted step 3s;
+D. the dry-run against the card: ``repro_torch.roofline.analyze_step``
+   of h2o-danube's prefill at phase 7's 2 x 8192 and of its train step
+   at phase T's 2 x 4096 on fake tensors, each counted peak of live
+   bytes within 20% of the ``max_memory_allocated`` that phase measured,
+   printed beside it with the counted FLOPs beside ``model_flops`` and
+   the roofline terms (``roofline.HW``) beside the measured times.
 
 Every ``torch.profiler`` session of the run (phases 3 and S, the LM
 phases' prefill and decode, the train step) must pass its clock check.
@@ -192,9 +209,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.roofline import HW  # noqa: E402
+
 DEVICE = "cuda"
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-BF16_FLOP_PER_S = 989e12  # dense bf16 tensor cores, NVIDIA data sheet
+HBM_BYTES_PER_S = HW.hbm_bw  # H100 SXM, NVIDIA data sheet (repro_torch.roofline.HW)
+BF16_FLOP_PER_S = HW.peak_flops  # dense bf16 tensor cores, NVIDIA data sheet
 STENCIL_CU = "src/repro_torch/kernels/stencil/csrc/stencil.cu"
 FLASH_CU = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 SSD_CU = "src/repro_torch/kernels/mamba2_scan/csrc/ssd_scan.cu"
@@ -1408,9 +1427,12 @@ def rel_err(a, b) -> float:
 
 # torch.profiler's clock check: a spin kernel before and one after the
 # profiled window, each also timed by CUDA events (~5 ms at the H100's
-# clock; a shorter spin ahead keeps the stream busy past the first
-# event); the profiler's readings of both must be within
-# PROFILER_CLOCK_TOL of the events'.  On the chip machine a session
+# clock); the profiler's readings of both must be within
+# PROFILER_CLOCK_TOL of the events'.  A shorter spin ahead of each keeps
+# the stream busy past its first event, so the events time the spin
+# alone: recorded on an idle stream, the last one's pair once also
+# timed the host's 0.47 ms delay in launching it, with a Server's 16
+# worker threads alive (PERF.md).  On the H100 machine a session
 # loses its first device records (1-3 after a profiled drain of the
 # runtime's worker threads, up to 27 late in a full run; phase P,
 # PERF.md), so the LM sessions lost their first spin kernels.  (With one
@@ -1426,6 +1448,7 @@ def rel_err(a, b) -> float:
 # records may be lost, and the host waits PROFILER_SETTLE_S after the
 # profiler starts and again before it stops.
 SPIN_CYCLES, PROFILER_CLOCK_TOL, PROFILER_PRIMES = 10_000_000, 0.03, 64
+PROFILER_SPINS = 4  # a short spin, then a timed one, at each end
 PROFILER_SETTLE_S = 0.25
 
 
@@ -1433,7 +1456,7 @@ class CheckedProfile:
     """``torch.profiler`` (CUDA activity) over a window bracketed by
     spin kernels that CUDA events time as well, after ``primes`` launches
     that absorb the records the session loses at its start.  After the
-    window, ``ok`` says whether the profiler found all three spin kernels
+    window, ``ok`` says whether the profiler found all four spin kernels
     with both timed ones within ``PROFILER_CLOCK_TOL`` of the events,
     ``lost`` how many of the primes at its start it did not record,
     ``lost_tail`` how many of those at its end (after the last spin
@@ -1476,6 +1499,7 @@ class CheckedProfile:
 
         torch = self.torch
         if exc[0] is None:
+            torch.cuda._sleep(SPIN_CYCLES // 4)
             self._ev[2].record()
             torch.cuda._sleep(SPIN_CYCLES)
             self._ev[3].record()
@@ -1496,17 +1520,17 @@ class CheckedProfile:
         self._window = [e for e in device if "spin_kernel" not in e.name
                         and spins and start <= e.time_range.start <= spins[-1].time_range.end]
         self.spins, self.records = len(spins), len(device)
-        self.by_prof = [e.time_range.elapsed_us() / 1e3 for e in spins[1:]]
+        self.by_prof = [e.time_range.elapsed_us() / 1e3 for e in spins[1::2]]
         self.by_events = [self._ev[0].elapsed_time(self._ev[1]),
                           self._ev[2].elapsed_time(self._ev[3])]
-        self.ok = len(spins) == 3 and all(abs(p / e - 1) <= PROFILER_CLOCK_TOL
+        self.ok = len(spins) == PROFILER_SPINS and all(abs(p / e - 1) <= PROFILER_CLOCK_TOL
                                           for p, e in zip(self.by_prof, self.by_events))
         CheckedProfile.sessions.append((self.what, self.ok))
         if self.quiet:
             return False
         log(f"    profiler clock check over {self.what}: spin kernels "
             f"{[round(t, 4) for t in self.by_prof]} ms by the profiler (of {len(spins)} "
-            f"found, 3 launched), {[round(t, 4) for t in self.by_events]} ms by CUDA events: "
+            f"found, {PROFILER_SPINS} launched), {[round(t, 4) for t in self.by_events]} ms by CUDA events: "
             f"{'passed' if self.ok else 'FAILED'}; {self.lost} of {self.primes} primes lost "
             f"at the start, {self.lost_tail} at the end")
         if not self.ok:
@@ -1662,7 +1686,7 @@ def phase_profiler_probe(cases=PRIMED_CASES) -> dict:
         tail = [ss["lost_tail"] for ss in r["sessions"]]
         log(f"[P] {label:42s}: {sum(passed)} of {len(passed)} sessions passed "
             f"({''.join('+' if ok else '-' for ok in passed)}); spins found "
-            f"{[ss['spins'] for ss in r['sessions']]} of 3"
+            f"{[ss['spins'] for ss in r['sessions']]} of {PROFILER_SPINS}"
             f"{f'; records lost at the start {lost} of {PROBE_CASES[label][1]} primes' if lost[0] is not None else ''}"
             f"{f', at the end {tail}' if lost[0] is not None else ''}"
             f"; worst clock error "
@@ -1939,7 +1963,8 @@ def phase_lm(torch, tag: str, arch: str, expect: dict, kernels: dict,
             f"events {mla_ms:.2f} ms; x {cfg.n_layers} blocks = {mla_ms * cfg.n_layers:.1f} ms "
             f"of a {prefill_s * 1e3:.1f} ms prefill")
         del h, ckv
-    return dict(cfg=cfg, shape=shape, params=params, batch=batch, toks=toks,
+    return dict(cfg=cfg, shape=shape, params=params, batch=batch, toks=toks, peak=peak,
+                prefill_s=prefill_s,
                 launches=n_prefill, arch=arch, flash_shapes=dict(shapes.calls))
 
 
@@ -2209,12 +2234,9 @@ def phase_layer_check(torch, tag: str, lm: dict, fresh_state: bool = False) -> N
 def valid_pairs(B: int, Sq: int, Sk: int, H: int, causal: bool, window) -> int:
     """(query, key) pairs an attention keeps: key j for query i when
     j <= i if causal and i - j < window if windowed."""
-    per_head = 0
-    for i in range(Sq):
-        hi = min(i + 1, Sk) if causal else Sk
-        lo = max(0, i - window + 1) if window is not None else 0
-        per_head += max(0, hi - lo)
-    return per_head * B * H
+    from repro_torch.kernels.flash_attention.ops import kept_pairs
+
+    return kept_pairs(Sq, Sk, Sk, causal, window) * B * H
 
 
 def phase_flash_times(fa, torch, gen, tag: str, path: str, launches: int, err: dict) -> dict:
@@ -2556,6 +2578,170 @@ def phase_train(torch, card: str, tag: str = "T") -> dict:
     return out
 
 
+# phase C: the paper's collectives on NCCL at world size 1 (one card gives
+# NCCL one rank), at the main path's grid and h2o-danube's projection
+COLL_X, COLL_W = (LM_BATCH * 4096, 3840), (3840, 10240)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_collectives(torch, ks, card: str) -> None:
+    """Phase C: ``repro_torch.comm`` on an NCCL group of one rank on the
+    card: ``jacobi_step_sharded`` at 16386² f64 (both overlap modes) bit
+    for bit the CUDA ``jacobi_sweep`` and one host-NumPy sweep, timed by
+    CUDA events beside the kernel; ``ag_matmul`` and ``matmul_rs`` at
+    h2o-danube's MLP projection in bf16 bit for bit ``torch.matmul``;
+    ``ring_all_gather``, ``ring_reduce_scatter``, ``halo_exchange``
+    (periodic and not) and ``stencil_1d_sharded`` on the grid's rows
+    against plain slicing.  The group must start on NCCL: nothing falls
+    back to another backend or to the host."""
+    import torch.distributed as dist
+
+    from repro_torch.comm import collectives as col
+
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        assert dist.get_backend() == "nccl", dist.get_backend()
+        host = numpy_grid(MAIN_N)
+        full = torch.from_numpy(host).to(DEVICE)
+        want_host = numpy_sweeps(host.copy(), 1)
+        kernel = ks.jacobi_sweep(full)
+        for overlap in ("ring", "none"):
+            with col.record_collectives() as rec:
+                got = col.jacobi_step_sharded(full, None, overlap=overlap)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.float64 and torch.equal(got, kernel), overlap
+            assert np.array_equal(got.cpu().numpy(), want_host), overlap
+            kinds = [(e, r.kind) if e != "compute" else (e, r) for e, r in rec.events]
+            log(f"[C] jacobi_step_sharded {MAIN_N + 2}² f64, overlap {overlap!r}: equal to the "
+                f"CUDA jacobi_sweep and to host NumPy bit for bit; events {kinds}")
+            del got
+        del kernel, want_host, host
+        ms = cuda_ms_alternating([lambda: ks.jacobi_sweep(full),
+                                  lambda: col.jacobi_step_sharded(full, None, overlap="ring"),
+                                  lambda: col.jacobi_step_sharded(full, None, overlap="none")],
+                                 reps=5, warmup=1)
+        log(f"[C] jacobi at {MAIN_N + 2}² f64 by CUDA events (in alternating rounds): the "
+            f"CUDA jacobi_sweep kernel {ms[0]:.3f} ms | jacobi_step_sharded ring "
+            f"{ms[1]:.3f} ms, none {ms[2]:.3f} ms (torch ops, one NCCL rank: its halos are "
+            f"local copies) | {card}")
+
+        rows = full.shape[1]
+        zero = torch.zeros(1, rows, dtype=full.dtype, device=DEVICE)
+        assert torch.equal(col.ring_all_gather(full, None), full)
+        assert torch.equal(col.ring_reduce_scatter(full, None), full)
+        for periodic, want in ((False, (zero, zero)), (True, (full[-1:], full[:1]))):
+            got = col.halo_exchange(full, None, periodic=periodic)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), periodic
+
+        def point(left, center, right):
+            return 0.25 * left + 0.5 * center + 0.25 * right
+
+        for periodic in (False, True):
+            lo, hi = (full[-1:], full[:1]) if periodic else (zero, zero)
+            ext = torch.cat([lo, full, hi])
+            want = point(ext[:-2], ext[1:-1], ext[2:])
+            del ext
+            for overlap in ("ring", "none"):
+                got = col.stencil_1d_sharded(full, None, point, overlap=overlap,
+                                             periodic=periodic)
+                assert torch.equal(got, want), (periodic, overlap)
+                del got
+            del want
+        log(f"[C] ring_all_gather, ring_reduce_scatter, halo_exchange (periodic and not) and "
+            f"stencil_1d_sharded (both modes, periodic and not) on the grid's "
+            f"{MAIN_N + 2} rows: equal to plain slicing")
+        del full, zero
+        torch.cuda.empty_cache()
+
+        gen = torch.Generator(device=DEVICE).manual_seed(24)
+        x = torch.randn(*COLL_X, device=DEVICE, generator=gen).to(torch.bfloat16)
+        w = torch.randn(*COLL_W, device=DEVICE, generator=gen).to(torch.bfloat16)
+        want = torch.matmul(x, w)
+        for overlap in ("ring", "none"):
+            assert torch.equal(col.ag_matmul(x, w, None, overlap=overlap), want), overlap
+            assert torch.equal(col.matmul_rs(x, w, None, overlap=overlap), want), overlap
+        ms = cuda_ms_alternating([lambda: torch.matmul(x, w),
+                                  lambda: col.ag_matmul(x, w, None),
+                                  lambda: col.matmul_rs(x, w, None)], reps=10)
+        log(f"[C] ag_matmul and matmul_rs, x {list(COLL_X)} x w {list(COLL_W)} bf16 (h2o-danube's "
+            f"MLP input projection at 2 x 4096 tokens), both modes: equal to torch.matmul bit "
+            f"for bit; by CUDA events torch.matmul {ms[0]:.3f} ms, ag_matmul {ms[1]:.3f} ms, "
+            f"matmul_rs {ms[2]:.3f} ms | {card}")
+        del x, w, want
+    finally:
+        dist.destroy_process_group()
+    log(f"[C] phase C took {time.perf_counter() - t_phase:.1f} s")
+
+
+# phase D: the dry-run's peak within this of the measured peak
+DRYRUN_PEAK_TOL = 0.2
+
+
+def phase_dryrun(torch, card: str, prefill: dict, train: dict) -> None:
+    """Phase D: ``repro_torch.roofline.analyze_step`` of h2o-danube's
+    prefill at phase 7's 2 x 8192 and of its train step at phase T's
+    2 x 4096 on fake tensors (nothing allocated), beside what those
+    phases measured on the card: the counted peak of live bytes within
+    DRYRUN_PEAK_TOL of ``torch.cuda.max_memory_allocated``, the counted
+    FLOPs beside ``model_flops``, the roofline terms beside the measured
+    times."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.steps import (_param_shapes, cell_config, make_optimizer,
+                                          make_prefill_step, make_train_step)
+    from repro_torch.roofline import analyze_step, model_flops, roofline_terms
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    t_phase = time.perf_counter()
+    arch = DANUBE[0]
+    runs = []
+    cfg = cell_config(arch, "prefill_32k")
+    fake = FakeTensorMode(allow_non_fake_inputs=True)
+    params = _param_shapes(cfg, fake)
+    with fake:
+        tokens = torch.empty((LM_BATCH, LM_PROMPT), dtype=torch.int32)
+    shape = ShapeSpec("prefill cut", LM_PROMPT + LM_NEW, LM_BATCH, "prefill")
+    runs.append(("prefill", cfg, ShapeSpec("tokens", LM_PROMPT, LM_BATCH, "prefill"),
+                 analyze_step(make_prefill_step(cfg, shape), params, {"tokens": tokens}),
+                 prefill["peak"], prefill["prefill_s"], "phase 7"))
+    cfg = cell_config(arch, "train_4k").replace(microbatches=1)
+    fake = FakeTensorMode(allow_non_fake_inputs=True)
+    params = _param_shapes(cfg, fake)
+    opt = make_optimizer(cfg)
+    with fake:
+        opt_state = opt.init(params)
+        batch = {k: torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+    runs.append(("train step", cfg, ShapeSpec("tokens", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                 analyze_step(make_train_step(cfg, opt), params, opt_state, batch),
+                 train["peak"], train["step_s"], "phase T"))
+    del params, opt_state, batch, tokens
+    for what, cfg, shape, a, peak, seconds, where in runs:
+        dry = a["memory"]["peak_size_in_bytes"]
+        terms = roofline_terms(a, n_devices=1)
+        mf = model_flops(cfg, shape)
+        log(f"[D] {arch} {what} at {shape.global_batch} x {shape.seq_len} on fake tensors: "
+            f"peak live {dry / 1e9:.3f} GB (arguments {a['memory']['argument_size_in_bytes'] / 1e9:.3f}"
+            f" GB) against {peak / 1e9:.3f} GB max_memory_allocated in {where} (ratio "
+            f"{dry / peak:.4f}); counted {a['flops']:.4e} FLOP (kernels' "
+            f"{a['kernel_flops']:.3e}, launches {a['kernel_launches']}) against model_flops "
+            f"{mf:.4e} ({a['flops'] / mf:.3f}x); {a['bytes_accessed'] / 1e9:.1f} GB accessed "
+            f"over {a['n_ops']} ops; roofline on HW: compute {terms['t_compute']:.4f} s, memory "
+            f"{terms['t_memory']:.4f} s, collective {terms['t_collective']:.4f} s, bound by "
+            f"{terms['dominant']} | measured {seconds:.3f} s in {where} | {card}")
+        assert abs(dry / peak - 1) <= DRYRUN_PEAK_TOL, (what, dry, peak)
+    log(f"[D] phase D took {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_build(libs) -> None:
     """Phase 1: the kernel library, the ptxas report and the SASS checks;
     every module of ``libs`` loads that one library."""
@@ -2631,7 +2817,9 @@ def main() -> int:
             rec["serve_launches"] = serve_info["launches"]
             rec["serve_fragments"] = serve_info["fragments"]
     torch.cuda.empty_cache()
-    launches = {}
+    phase_collectives(torch, ks, card)
+    torch.cuda.empty_cache()
+    launches, measured = {}, {}
     # every bf16 flash launch of a prefill goes to the wgmma kernel, every
     # bf16 SSD launch to the tensor-core kernel
     for tags, (arch, expect), kernels, f32_kw in (
@@ -2647,6 +2835,7 @@ def main() -> int:
         phase_layer_check(torch, tags[1], lm)
         phase_lm_agreement(torch, tags[1], lm, f32_kw)
         launches[arch] = lm["launches"]
+        measured[arch] = dict(peak=lm["peak"], prefill_s=lm["prefill_s"])
         del lm
         torch.cuda.empty_cache()
     for path, arch in (("danube", DANUBE[0]), ("zamba2", ZAMBA[0])):
@@ -2688,7 +2877,8 @@ def main() -> int:
         records.append(phase_flash_times(fa, torch, gen, "19", path,
                                          shapes[(Sq, Sk, H, KV, d, causal)], flash_err))
         torch.cuda.empty_cache()
-    phase_train(torch, card)
+    train = phase_train(torch, card)
+    phase_dryrun(torch, card, measured[DANUBE[0]], train)
     checked = CheckedProfile.sessions
     failed = [what for what, ok in checked if not ok]
     log(f"[P] profiler sessions of this run that passed the clock check: "
@@ -2762,7 +2952,7 @@ def probe_train_main(rounds: int) -> int:
                 step()
             passed[settle].append(window.ok)
             log(f"[PT] round {i} settle {settle} s: {'passed' if window.ok else 'FAILED'}; "
-                f"spins found {window.spins} of 3; records {window.records}; primes lost "
+                f"spins found {window.spins} of {PROFILER_SPINS}; records {window.records}; primes lost "
                 f"{window.lost} of {PROFILER_PRIMES} at the start, {window.lost_tail} at the "
                 f"end; clock errors "
                 f"{[round(e, 5) for e in window.clock_errors()]}")

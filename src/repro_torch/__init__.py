@@ -64,6 +64,7 @@ _API_EXPORTS = (
     "ClusterSpec",
     "GIGE_2012",
     "TPU_V5E_ICI",
+    "H100_NVLINK",
     "format_stats",
     "trace",
     "TraceCollector",

@@ -79,6 +79,7 @@ _CORE_EXPORTS = {
     "ClusterSpec": "repro_torch.core.timeline",
     "GIGE_2012": "repro_torch.core.timeline",
     "TPU_V5E_ICI": "repro_torch.core.timeline",
+    "H100_NVLINK": "repro_torch.core.timeline",
     # observability (repro_torch.obs): lifecycle tracing, Perfetto export,
     # wait attribution
     "trace": "repro_torch.obs",

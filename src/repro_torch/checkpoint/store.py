@@ -100,11 +100,12 @@ def _is_leaf(x) -> bool:
     return not isinstance(x, (dict, list, tuple)) or isinstance(x, Stacked)
 
 
-def _leaf_paths(tree, prefix: str = "") -> list[tuple[str, Any]]:
-    """(keystr name, leaf) pairs in JAX's flattening order."""
+def _leaf_paths(tree, prefix: str = "", is_leaf=None) -> list[tuple[str, Any]]:
+    """(keystr name, leaf) pairs in JAX's flattening order; ``is_leaf``,
+    as JAX's, marks further leaves (a tuple type that is one)."""
     if tree is None:
         return []
-    if _is_leaf(tree):
+    if _is_leaf(tree) or (is_leaf is not None and is_leaf(tree)):
         return [(prefix, tree)]
     if isinstance(tree, dict):
         items = [(f"[{k!r}]", tree[k]) for k in sorted(tree)]
@@ -112,21 +113,23 @@ def _leaf_paths(tree, prefix: str = "") -> list[tuple[str, Any]]:
         items = [(f".{f}", getattr(tree, f)) for f in tree._fields]
     else:
         items = [(f"[{i}]", x) for i, x in enumerate(tree)]
-    return [pair for key, sub in items for pair in _leaf_paths(sub, prefix + key)]
+    return [pair for key, sub in items for pair in _leaf_paths(sub, prefix + key, is_leaf)]
 
 
-def _map_leaves(fn, tree, prefix: str = ""):
-    """``tree`` with each leaf replaced by ``fn(name, leaf)``."""
+def _map_leaves(fn, tree, prefix: str = "", is_leaf=None):
+    """``tree`` with each leaf replaced by ``fn(name, leaf)`` (``is_leaf``
+    as in ``_leaf_paths``)."""
     if tree is None:
         return None
-    if _is_leaf(tree):
+    if _is_leaf(tree) or (is_leaf is not None and is_leaf(tree)):
         return fn(prefix, tree)
     if isinstance(tree, dict):
-        return {k: _map_leaves(fn, tree[k], prefix + f"[{k!r}]") for k in tree}
+        return {k: _map_leaves(fn, tree[k], prefix + f"[{k!r}]", is_leaf) for k in tree}
     if hasattr(tree, "_fields"):
-        return type(tree)(*(_map_leaves(fn, getattr(tree, f), prefix + f".{f}")
+        return type(tree)(*(_map_leaves(fn, getattr(tree, f), prefix + f".{f}", is_leaf)
                             for f in tree._fields))
-    return type(tree)(_map_leaves(fn, x, prefix + f"[{i}]") for i, x in enumerate(tree))
+    return type(tree)(_map_leaves(fn, x, prefix + f"[{i}]", is_leaf)
+                      for i, x in enumerate(tree))
 
 
 def _to_host(leaf) -> tuple[str, np.ndarray]:

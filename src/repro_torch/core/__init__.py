@@ -20,7 +20,7 @@ from .engine import ArrayBase, Runtime, current_runtime
 from .graph import COMM, COMPUTE, AccessNode, DependencySystem, FullDAG, OperationNode
 from .plan import DEFAULT_ASYNC_PIPELINE, PlanStats, plan, resolve_pipeline
 from .scheduler import DeadlockError, run_rendezvous_bsp, run_schedule
-from .timeline import GIGE_2012, TPU_V5E_ICI, ClusterSpec, TimelineResult
+from .timeline import GIGE_2012, H100_NVLINK, TPU_V5E_ICI, ClusterSpec, TimelineResult
 
 __all__ = [
     "Runtime",
@@ -49,4 +49,5 @@ __all__ = [
     "TimelineResult",
     "GIGE_2012",
     "TPU_V5E_ICI",
+    "H100_NVLINK",
 ]

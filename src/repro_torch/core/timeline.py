@@ -9,15 +9,21 @@ Two built-in calibrations:
 
 * ``GIGE_2012``  — the paper's testbed: 16 nodes, GbE (α≈50 µs,
   β≈8.4 ns/B ⇒ ~119 MB/s), ~2012-era per-core element throughput.
-* ``TPU_V5E_ICI`` — a TPU-pod projection: 50 GB/s link, 1 µs latency,
-  per-chip bf16 compute from the roofline constants.  Used to project the
-  paper's schedule benefit onto the target hardware.
+* ``H100_NVLINK`` — the port's target: one host's 8 H100 cards on
+  NVLink, per-card bf16 compute and HBM rate from the port's roofline
+  constants (``repro_torch.roofline.HW``).  Used to project the paper's
+  schedule benefit onto the target hardware.
+* ``TPU_V5E_ICI`` — the reference's TPU-pod projection, kept as the JAX
+  package exports it: no figure of the port's card.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-__all__ = ["ClusterSpec", "ProcStats", "TimelineResult", "GIGE_2012", "TPU_V5E_ICI"]
+from repro_torch.roofline.analysis import HW
+
+__all__ = ["ClusterSpec", "ProcStats", "TimelineResult", "GIGE_2012", "TPU_V5E_ICI",
+           "H100_NVLINK"]
 
 
 @dataclass(frozen=True)
@@ -75,8 +81,10 @@ GIGE_2012 = ClusterSpec(
     name="gige-2012",
 )
 
-# TPU v5e-class projection: ICI 50 GB/s/link, ~1 µs collective hop latency,
-# 197 TFLOP/s bf16, HBM-bound ufunc elements at 819 GB/s / 4 B.
+# The reference's TPU v5e-class projection (repro.core.timeline), exported
+# for parity with the JAX package: ICI 50 GB/s/link, ~1 µs collective hop
+# latency, 197 TFLOP/s bf16, HBM-bound ufunc elements at 819 GB/s / 4 B.
+# None of these is a figure of the H100 the port runs on (H100_NVLINK).
 TPU_V5E_ICI = ClusterSpec(
     nprocs=256,
     alpha=1e-6,
@@ -85,6 +93,22 @@ TPU_V5E_ICI = ClusterSpec(
     elem_time=4.0 / 819e9,
     flop_time=1.0 / 197e12,
     name="tpu-v5e-ici",
+)
+
+# One H100 host's NVLink domain, 8 cards all to all (an HGX H100 board):
+# NVLink 450 GB/s a direction a card, 989 TFLOP/s bf16, HBM-bound ufunc
+# elements at 3.35 TB/s / 4 B — the port's roofline constants (HW, NVIDIA's
+# data sheet).  α and o_msg are assumptions, not measurements (one card
+# cannot time a hop between two): 5 µs end to end for a small NCCL
+# point-to-point message between two cards of a host, 1 µs to post one.
+H100_NVLINK = ClusterSpec(
+    nprocs=8,
+    alpha=5e-6,
+    beta=1.0 / HW.ici_bw,
+    o_msg=1e-6,
+    elem_time=4.0 / HW.hbm_bw,
+    flop_time=1.0 / HW.peak_flops,
+    name="h100-nvlink",
 )
 
 

@@ -5,8 +5,9 @@ version.
 kernel of ``csrc/flash_attention.cu`` on the current stream — for
 tensors on a CUDA device — or runs ``flash_attention_plain`` — for
 tensors on the CPU, where no kernel exists.  There is no other route: a
-CUDA tensor launches its dtype's kernel or raises.  The dtype picks the
-kernel:
+CUDA tensor launches its dtype's kernel or raises.  (A dry-run's fake tensor
+reaches neither: ``repro_torch.kernels.fake_launch``.)  The dtype picks
+the kernel:
 
 - **bfloat16: the wgmma kernel** (``flash_attention_wgmma_kernel``): TMA
   loads into a ring of shared-memory stages, both products on the
@@ -41,13 +42,14 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import fake_launch, is_fake, refuse_grad
 from repro_torch.kernels.build import BuiltLibrary, kernel_library
 
 __all__ = [
     "flash_attention",
     "flash_attention_plain",
     "first_keyless_row",
+    "kept_pairs",
     "BF16_REL_TOL",
     "bf16_rel_err",
     "launches",
@@ -197,6 +199,19 @@ def first_keyless_row(Sq: int, sk_valid: int, window: Optional[int]) -> int:
     return min(Sq, sk_valid + window - 1)
 
 
+def kept_pairs(Sq: int, Sk: int, sk_valid: int, causal: bool,
+               window: Optional[int]) -> int:
+    """(query, key) pairs of one head that the mask keeps: key j for
+    query i when ``j < sk_valid``, ``j <= i`` if causal and
+    ``i - j < window`` if windowed."""
+    import numpy as np
+
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i + 1, sk_valid) if causal else np.full(Sq, min(Sk, sk_valid))
+    lo = np.maximum(0, i - window + 1) if window is not None else 0
+    return int(np.maximum(0, hi - lo).sum())
+
+
 def flash_attention_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -301,6 +316,12 @@ def flash_attention(
     prefill never makes such a row (a causal row always sees key 0)."""
     refuse_grad("flash_attention", q, k, v)
     sk_valid = _check(q, k, v, sk_valid)
+    if is_fake(q):  # a dry-run: q.k and p.v, 2 d multiply-adds a kept pair
+        B, Sq, H, d = q.shape
+        out = torch.empty_like(q)
+        pairs = B * H * kept_pairs(Sq, k.shape[1], sk_valid, causal, window)
+        fake_launch("flash_attention", 4 * d * pairs, (q, k, v, out))
+        return out
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale, sk_valid=sk_valid)

@@ -8,7 +8,8 @@ kernel exists.  On the card the dtype picks the kernel: bf16 x, B, C run
 ``ssd_scan_tc_kernel`` (the chunked dual form on tensor cores, with
 asynchronous chunk loads), f32 ``ssd_scan_simt_kernel`` (the recurrence
 token by token on FP32 FMA).  There is no other route: a CUDA tensor
-launches its dtype's kernel or raises.
+launches its dtype's kernel or raises.  (A dry-run's fake tensor reaches neither:
+``repro_torch.kernels.fake_launch``.)
 
 The layout is the JAX wrapper's (``repro.kernels.mamba2_scan``): x
 ``[b, s, h, p]``, dt ``[b, s, h]``, A ``[h]``, B and C ``[b, s, n]``
@@ -29,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import fake_launch, is_fake, refuse_grad
 from repro_torch.kernels.build import BuiltLibrary, kernel_library
 
 __all__ = ["ssd_scan", "ssd_scan_plain", "launches", "reset_launches", "load"]
@@ -170,6 +171,13 @@ def ssd_scan(
     ``[b, h, p, n]`` float32)."""
     refuse_grad("ssd_scan", x, dt, A, B, C, init_state)
     _check(x, dt, A, B, C, init_state)
+    if is_fake(x):  # a dry-run: state update and output, 2 multiply-adds an entry
+        b, s, h, p = x.shape
+        n = B.shape[-1]
+        y = torch.empty_like(x)
+        final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+        fake_launch("ssd_scan", 4 * b * s * h * p * n, (x, dt, A, B, C, init_state, y, final))
+        return y, final
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, init_state)
     b, s, h, p = x.shape

@@ -7,7 +7,8 @@ exists.  On the card the dtype picks the kernel: bf16 r, k, v run
 ``wkv6_tc_kernel`` (the chunked form on tensor cores, with asynchronous
 chunk loads), f32 ``wkv6_simt_kernel`` (the recurrence token by token on
 FP32 FMA).  There is no other route: a CUDA tensor launches its dtype's
-kernel or raises.
+kernel or raises.  (A dry-run's fake tensor reaches neither:
+``repro_torch.kernels.fake_launch``.)
 
 The layout is the JAX wrapper's (``repro.kernels.rwkv6_wkv``): r, k, v
 and the decay w ``[B, T, H, N]``, the bonus u ``[H, N]``, an initial
@@ -26,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import fake_launch, is_fake, refuse_grad
 from repro_torch.kernels.build import BuiltLibrary, kernel_library
 
 __all__ = ["wkv6", "wkv6_plain", "launches", "reset_launches", "load"]
@@ -164,6 +165,12 @@ def wkv6(
     N]`` float32)."""
     refuse_grad("wkv6", r, k, v, w, u, init_state)
     _check(r, k, v, w, u, init_state)
+    if is_fake(r):  # a dry-run: r.S and the state update, 2 multiply-adds an entry
+        B, T, H, N = r.shape
+        y = torch.empty_like(r)
+        final = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+        fake_launch("wkv6", 4 * B * T * H * N * N, (r, k, v, w, u, init_state, y, final))
+        return y, final
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, init_state)
     B, T, H, N = r.shape

@@ -1,8 +1,10 @@
 """Step builders: train_step / prefill_step / serve_step per (arch × shape).
 
-The port of ``repro.launch.steps``.  ``cell()``, ``Cell`` and the
-sharding specs take a JAX ``Mesh``; they come with the mesh and sharding
-slice (see ROADMAP.md).
+The port of ``repro.launch.steps``.  ``cell()`` returns everything the
+dry-run needs: the step function, its arguments as fake tensors at full
+size (``FakeTensorMode``: shapes and dtypes, no data, where the
+reference has ``ShapeDtypeStruct``s) and the specs of its inputs and
+outputs on a mesh (``launch.sharding``).
 
 The train step differentiates ``loss_fn`` with torch autograd through
 the torch twins of the kernels (``cfg.use_flash=False``), as the JAX
@@ -13,17 +15,24 @@ parameters and moments in place.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs import SHAPES, get_config
 from repro_torch.configs.base import ModelConfig, ShapeSpec
-from repro_torch.models import decode_step, loss_fn, prefill
-from repro_torch.optim import AdamW
+from repro_torch.data.pipeline import make_batch_specs
+from repro_torch.models import decode_step, loss_fn, make_decode_state, prefill
+from repro_torch.models.model import Model
+from repro_torch.optim import AdamW, OptState
 
-__all__ = ["make_train_step", "make_optimizer", "make_serve_step", "make_prefill_step",
-           "cell_config", "skip_reason"]
+from .sharding import P, batch_specs, param_specs, state_specs
+
+__all__ = ["cell", "Cell", "make_train_step", "make_optimizer", "make_serve_step",
+           "make_prefill_step", "cell_config", "skip_reason", "param_specs_like"]
 
 # archs whose attention is quadratic-full → long_500k is skipped
 _FULL_ATTN_SKIP = {
@@ -131,3 +140,108 @@ def make_serve_step(cfg) -> Callable:
         return next_tokens, new_state
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# cell assembly (fn + fake arguments + specs)
+# ---------------------------------------------------------------------------
+
+# the device the fake tensors name: a dry-run computes nothing, and the
+# kernel wrappers take their fake route on any device
+_FAKE_DEVICE = "cpu"
+
+
+@dataclass
+class Cell:
+    arch_id: str
+    shape: ShapeSpec
+    cfg: ModelConfig
+    fn: Callable
+    args: tuple  # fake tensors (and the model holding them)
+    in_shardings: tuple  # spec trees
+    out_shardings: Any
+    kind: str
+
+
+def _param_shapes(cfg, fake_mode: FakeTensorMode) -> Model:
+    """The model of ``cfg`` at full size on fake tensors: ``Model(cfg,
+    "meta")`` (no data and no generator), each parameter then replaced by
+    a fake tensor of its shape and dtype."""
+    model = Model(cfg, "meta")
+    with fake_mode:
+        for mod in model.modules():
+            for name, p in list(mod._parameters.items()):
+                mod._parameters[name] = torch.nn.Parameter(
+                    torch.empty(p.shape, dtype=p.dtype, device=_FAKE_DEVICE),
+                    requires_grad=p.requires_grad)
+    return model
+
+
+def _fake_batch(cfg, shape: ShapeSpec) -> dict:
+    """One global batch of ``make_batch_specs``'s shapes and dtypes (token
+    ids as numpy dtypes, embeddings as torch ones), under the caller's
+    fake mode."""
+    return {k: torch.empty(s, device=_FAKE_DEVICE, dtype=dt if isinstance(dt, torch.dtype)
+                           else torch.from_numpy(np.empty(0, dt)).dtype)
+            for k, (s, dt) in make_batch_specs(cfg, shape).items()}
+
+
+def cell(arch_id: str, shape_name: str, mesh, **cfg_overrides) -> Cell:
+    """Build the dry-run cell for (arch × shape) on ``mesh`` (a
+    ``DeviceMesh`` or a mapping of axis name to size)."""
+    cfg = cell_config(arch_id, shape_name, **cfg_overrides)
+    shape = SHAPES[shape_name]
+    # real tensors a step makes from constants (a cached rotary table)
+    # join the fake ones
+    fake_mode = FakeTensorMode(allow_non_fake_inputs=True)
+    params = _param_shapes(cfg, fake_mode)
+    p_spec = param_specs(params, mesh)
+    seq_sharded = shape.global_batch == 1
+
+    with fake_mode:
+        if shape.kind == "train":
+            opt = make_optimizer(cfg)
+            opt_state = opt.init(params)
+            o_spec = param_specs_like(opt_state, p_spec)
+            batch = _fake_batch(cfg, shape)
+            b_spec = batch_specs(batch, mesh, seq_sharded=seq_sharded)
+            return Cell(
+                arch_id, shape, cfg, make_train_step(cfg, opt),
+                (params, opt_state, batch),
+                (p_spec, o_spec, b_spec),
+                (p_spec, o_spec, P()),
+                "train",
+            )
+
+        if shape.kind == "prefill":
+            batch = _fake_batch(cfg, shape)
+            b_spec = batch_specs(batch, mesh, seq_sharded=seq_sharded)
+            st_spec = state_specs(make_decode_state(cfg, shape.global_batch, shape.seq_len,
+                                                    device=_FAKE_DEVICE), mesh)
+            return Cell(
+                arch_id, shape, cfg, make_prefill_step(cfg, shape),
+                (params, batch),
+                (p_spec, b_spec),
+                (P(), st_spec),
+                "prefill",
+            )
+
+        # decode: one token against a seq_len-deep cache
+        state = make_decode_state(cfg, shape.global_batch, shape.seq_len,
+                                  start_pos=shape.seq_len - 1, device=_FAKE_DEVICE)
+        st_spec = state_specs(state, mesh)
+        tokens = torch.empty((shape.global_batch,), dtype=torch.int32, device=_FAKE_DEVICE)
+        t_spec = batch_specs(tokens, mesh)
+        return Cell(
+            arch_id, shape, cfg, make_serve_step(cfg),
+            (params, state, tokens),
+            (p_spec, st_spec, t_spec),
+            (t_spec, st_spec),
+            "decode",
+        )
+
+
+def param_specs_like(opt_state: OptState, p_spec):
+    """Optimizer state inherits each param's spec (moments are
+    shape-congruent); the step scalar is replicated."""
+    return type(opt_state)(P(), p_spec, p_spec)

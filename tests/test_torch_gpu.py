@@ -767,3 +767,48 @@ def test_copies_on_another_thread_hold_no_gate_to_its_timeout(cuda):
     want = np.zeros((n + 2, n + 2))
     want[0, :] = want[:, 0] = 1.0
     assert np.array_equal(got, _numpy_sweeps(want, 10))
+
+
+@pytest.fixture
+def nccl_world(cuda, tmp_path):
+    """A process group of one rank on NCCL, on the card (one card gives
+    NCCL one rank); no fallback to another backend."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("overlap", ["ring", "none"])
+def test_jacobi_step_sharded_on_nccl_equals_the_sweep_kernel_and_numpy(nccl_world, overlap):
+    """``comm.jacobi_step_sharded`` on one NCCL rank: bit for bit the CUDA
+    ``jacobi_sweep`` and the host NumPy sweep of the same f64 grid (the
+    same summation order in all three)."""
+    from repro_torch.comm import jacobi_step_sharded
+
+    host = np.random.default_rng(4).standard_normal((258, 300))
+    x = torch.from_numpy(host).cuda()
+    got = jacobi_step_sharded(x, None, overlap=overlap)
+    want = ks.jacobi_sweep(x)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float64 and torch.equal(got, want)
+    assert np.array_equal(got.cpu().numpy(), _numpy_sweeps(host.copy(), 1))
+
+
+@pytest.mark.parametrize("overlap", ["ring", "none"])
+def test_collective_matmuls_on_nccl_equal_torch_matmul(nccl_world, overlap):
+    """``ag_matmul`` and ``matmul_rs`` on one NCCL rank, bf16: bit for bit
+    ``torch.matmul`` of the same operands."""
+    from repro_torch.comm import ag_matmul, matmul_rs
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(256, 384, device="cuda", generator=g).to(torch.bfloat16)
+    w = torch.randn(384, 512, device="cuda", generator=g).to(torch.bfloat16)
+    want = torch.matmul(x, w)
+    assert torch.equal(ag_matmul(x, w, None, overlap=overlap), want)
+    assert torch.equal(matmul_rs(x, w, None, overlap=overlap), want)

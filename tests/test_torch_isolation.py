@@ -30,6 +30,9 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.models.mamba2, repro_torch.models.rwkv6\n"
         "import repro_torch.analysis, repro_torch.analysis.__main__\n"
         "import repro_torch.obs, repro_torch.serve, repro_torch.launch.serve\n"
+        "import repro_torch.comm, repro_torch.comm.collectives, repro_torch.roofline\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.sharding\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.train\n"
         "for name in repro_torch.__all__: getattr(repro_torch, name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax')"
         " or m == 'repro' or m.startswith('repro.'))\n"
@@ -95,10 +98,26 @@ def test_lm_entry_points_without_device_need_a_gpu():
 
 
 def test_unported_features_raise():
-    """What the port still lacks is absent: the sharded collectives."""
+    """The port lacks no feature of the reference any more: the sharded
+    collectives it lacked last are there, with the reference's names."""
     import repro_torch.comm
 
-    assert not hasattr(repro_torch.comm, "ring_all_gather")
+    names = ["ring_all_gather", "ring_reduce_scatter", "ag_matmul", "matmul_rs",
+             "halo_exchange", "stencil_1d_sharded", "jacobi_step_sharded"]
+    assert sorted(repro_torch.comm.__all__) == sorted(names)
+    assert all(callable(getattr(repro_torch.comm, n)) for n in names)
+
+
+def test_every_reference_module_has_a_counterpart():
+    """Each ``.py`` of ``src/repro`` has one at the same relative path in
+    ``src/repro_torch``, the Pallas kernels' ``kernel.py`` and ``ref.py``
+    aside (their CUDA sources and plain versions stand in for them)."""
+    ref = ROOT / "src" / "repro"
+    port = ROOT / "src" / "repro_torch"
+    missing = [str(f.relative_to(ref)) for f in sorted(ref.rglob("*.py"))
+               if not (f.parts[-3] == "kernels" and f.name in ("kernel.py", "ref.py"))
+               and not (port / f.relative_to(ref)).exists()]
+    assert not missing, missing
 
 
 def test_exports_cover_the_reference():
